@@ -1,0 +1,210 @@
+"""Headless query/editing session: the GUI's model-side logic.
+
+Counterpart of goi_tpu/app/session.py (inference half):
+
+- per-frame render + open-vocabulary similarity overlay
+  (ref:gui/main.py:549-604 test_step, :363-398 compute_similarity)
+- 3D retrieval / segmentation / deletion / move via per-Gaussian
+  similarity and a motion vector (ref:gui/main.py:400-405,516-531,
+  1168-1227)
+
+A frame is an eager sequence of launches on the session's device. OSH
+fine-tuning from a RES mask, DBSCAN grouping and video paths are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from goi_tpu_torch.core.scene import GaussianScene
+from goi_tpu_torch.query.osh import OSHState, osh_predict
+from goi_tpu_torch.query.similarity import ape_similarity
+from goi_tpu_torch.raster.render import RasterConfig, render
+from goi_tpu_torch.semantic.codebook import SemanticDecoder
+from goi_tpu_torch.utils.image import turbo_colormap
+
+
+def _normed_codebook_features(decoder, lut, features):
+    dec = decoder(features)
+    if lut is not None:
+        code = torch.argmax(torch.softmax(dec * 10.0, dim=-1), dim=-1)
+        feat = lut[code]
+    else:
+        feat = dec
+    return feat / torch.clamp(torch.linalg.norm(feat, dim=-1, keepdim=True),
+                              min=1e-12)
+
+
+def _frame(scene, cam, bg, gmask, decoder, lut, text, osh, *, cfg, mode,
+           branch, scaling_modifier, sim_thresh, log_scale, as_u8=False):
+    """One viewer frame: render + similarity + turbo-heat composite, the
+    math of the JAX package's `_frame_device`."""
+    def finish(img):
+        if as_u8:
+            return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+        return img
+
+    out = render(scene, cam, bg, cfg, scaling_modifier=scaling_modifier,
+                 gaussian_mask=gmask)
+    if mode == "depth":
+        d = out["depth"][0]
+        d = (d - d.min()) / torch.clamp(d.max() - d.min(), min=1e-9)
+        return finish(torch.stack([d] * 3, -1))
+    if mode == "alpha":
+        return finish(torch.stack([out["alpha"][0]] * 3, -1))
+    img = out["render"].permute(1, 2, 0)
+    if branch == "none":
+        return finish(img)
+    s, h, w = out["semantics"].shape
+    normed = _normed_codebook_features(
+        decoder, lut, out["semantics"].reshape(s, -1).T)
+    if branch == "osh":
+        sim = torch.sigmoid(osh_predict(osh, normed))
+        thresh = 0.5
+    else:
+        sim = ape_similarity(normed, text, log_scale=log_scale)
+        thresh = sim_thresh
+    sim = torch.where(sim < thresh, torch.zeros_like(sim), sim)
+    bg_mask = sim == 0
+    # clip_color(thresh=0.7, coloring=True), inlined
+    if branch == "osh":
+        rel = torch.clamp(sim + 0.2, 0.1, 0.9)
+    else:
+        rel = torch.clamp((sim - 0.7 - 0.05) / (sim.max() - 0.7), 0.0, 1.0)
+    heat = turbo_colormap(rel)
+    heat = torch.where(bg_mask[:, None], torch.ones_like(heat), heat)
+    heat = torch.clamp(heat.reshape(h, w, 3), 0, 1)
+    if branch == "osh":
+        alpha = bg_mask.to(torch.float32).reshape(h, w, 1)
+    else:
+        alpha = 1.0
+    opa = alpha * 0.4
+    return finish(torch.clamp(heat * opa + img * (1 - opa), 0, 1))
+
+
+class QuerySession:
+    def __init__(self, scene: GaussianScene, decoder: SemanticDecoder,
+                 lut: Optional[torch.Tensor],
+                 raster_cfg: RasterConfig = RasterConfig(),
+                 sim_thresh: float = 0.86, white_background: bool = True,
+                 device="cuda"):
+        self.device = torch.device(device)
+        self.scene = scene.to(self.device)
+        self.decoder = decoder.to(self.device)
+        self.lut = None if lut is None else lut.to(self.device)
+        self.raster_cfg = raster_cfg
+        self.sim_thresh = sim_thresh  # ref:gui default clip_feature_thresh
+        self.bg = (torch.ones(3, device=self.device) if white_background
+                   else torch.zeros(3, device=self.device))
+
+        self.text_tokens: Optional[torch.Tensor] = None  # aligned (C,)
+        self.log_scale: float = 0.0
+        self.osh: Optional[OSHState] = None
+        self.res_finetuned = False
+
+        # retrieval state (ref:gui/main.py:1168-1227), host-side
+        self.rel_gs_index: Optional[np.ndarray] = None
+        self.gs_index: Optional[np.ndarray] = None
+        self.motion = np.zeros(tuple(scene.xyz.shape), np.float32)
+
+    # ---- text / similarity ----
+    def set_text(self, aligned_tokens, log_scale: float = 0.0) -> None:
+        """Set the query embedding (an aligned text embedding,
+        ref:gui/main.py:105-111)."""
+        self.text_tokens = torch.as_tensor(
+            aligned_tokens, dtype=torch.float32,
+            device=self.device).reshape(-1)
+        self.log_scale = log_scale
+        self.res_finetuned = False
+
+    @torch.no_grad()
+    def compute_similarity(self, features: torch.Tensor) -> torch.Tensor:
+        """(pixels-or-gaussians, S) -> similarity with sub-threshold
+        values zeroed (ref:gui/main.py:363-385)."""
+        normed = _normed_codebook_features(self.decoder, self.lut, features)
+        if self.res_finetuned and self.osh is not None:
+            sim = torch.sigmoid(osh_predict(self.osh, normed))
+            thresh = 0.5
+        else:
+            if self.text_tokens is None:
+                return torch.zeros(features.shape[0], device=features.device)
+            sim = ape_similarity(normed, self.text_tokens,
+                                 log_scale=self.log_scale)
+            thresh = self.sim_thresh
+        return torch.where(sim < thresh, torch.zeros_like(sim), sim)
+
+    # ---- per-frame ----
+    @torch.no_grad()
+    def render_view(self, cam, mode: str = "image", overlay: bool = True,
+                    scaling_modifier: float = 1.0,
+                    as_u8: bool = False) -> np.ndarray:
+        """One viewer frame: render + optional similarity heat overlay
+        (ref:gui/main.py:549-604). Returns (H, W, 3) float (uint8 with
+        as_u8) on the host."""
+        gmask = None
+        if self.gs_index is not None:
+            gmask = torch.as_tensor(self.gs_index, device=self.device)
+        branch = "none"
+        text = osh = None
+        if mode == "image" and overlay:
+            if self.res_finetuned and self.osh is not None:
+                branch = "osh"
+                osh = self.osh
+            elif self.text_tokens is not None:
+                branch = "ape"
+                text = self.text_tokens
+        img = _frame(self.scene, cam.to(self.device), self.bg, gmask,
+                     self.decoder, self.lut, text, osh, cfg=self.raster_cfg,
+                     mode=mode, branch=branch,
+                     scaling_modifier=float(scaling_modifier),
+                     sim_thresh=self.sim_thresh,
+                     log_scale=float(self.log_scale), as_u8=as_u8)
+        return img.cpu().numpy()
+
+    # ---- 3D retrieval / editing ----
+    def compute_relative_gs_index(self) -> np.ndarray:
+        """Per-Gaussian membership of the current query
+        (ref:gui/main.py:400-405)."""
+        sims = self.compute_similarity(self.scene.get_semantics())
+        return (sims > 0).cpu().numpy() & self.scene.valid.cpu().numpy()
+
+    def retrieve(self) -> np.ndarray:
+        self.rel_gs_index = self.compute_relative_gs_index()
+        self.motion = np.zeros_like(self.motion)
+        return self.rel_gs_index
+
+    def segment(self) -> None:
+        """Show only the retrieved object (ref:gui/main.py:1183-1185)."""
+        self.gs_index = self.rel_gs_index
+
+    def delete_view(self) -> None:
+        """Hide the retrieved object (ref:gui/main.py:1192-1194)."""
+        self.gs_index = ~self.rel_gs_index
+
+    def delete_permanently(self) -> None:
+        """Prune matching Gaussians (ref:gui/main.py:516-524): clear their
+        validity bits."""
+        crop = self.compute_similarity(self.scene.get_semantics()) > 0
+        self.scene = self.scene.replace(valid=self.scene.valid & ~crop)
+
+    def move(self, delta) -> None:
+        """Translate the retrieved subset (ref:gui/main.py:1418-1496);
+        accumulated in self.motion for reset."""
+        if self.rel_gs_index is None:
+            return
+        d = np.asarray(delta, np.float32)
+        step = self.rel_gs_index[:, None] * d
+        self.motion = self.motion + step
+        self.scene = self.scene.replace(
+            xyz=self.scene.xyz + torch.as_tensor(step, device=self.device))
+
+    def reset_motion(self) -> None:
+        self.scene = self.scene.replace(
+            xyz=self.scene.xyz - torch.as_tensor(self.motion,
+                                                 device=self.device))
+        self.motion = np.zeros_like(self.motion)
+        self.gs_index = None

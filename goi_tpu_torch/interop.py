@@ -1,0 +1,66 @@
+"""Carry weights across from the JAX package.
+
+Plain functions that take numpy arrays (a JAX object's leaves after
+`np.asarray`) and build the port's objects on `device`. They import
+nothing of the JAX package, so the port runs where JAX is absent.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from goi_tpu_torch.core.camera import Camera
+from goi_tpu_torch.core.scene import GaussianScene
+from goi_tpu_torch.query.osh import OSHState
+from goi_tpu_torch.semantic.codebook import SemanticDecoder
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def scene_from_numpy(fields: Mapping[str, np.ndarray], *,
+                     active_sh_degree: int, max_sh_degree: int,
+                     device="cuda") -> GaussianScene:
+    """fields: xyz, features_dc, features_rest, semantics, scaling,
+    rotation, opacity (float32) and valid (bool), as GaussianScene's
+    fields are named in both packages."""
+    names = GaussianScene.PARAM_FIELDS + ("valid",)
+    return GaussianScene(**{k: _t(fields[k], device) for k in names},
+                         active_sh_degree=int(active_sh_degree),
+                         max_sh_degree=int(max_sh_degree))
+
+
+def camera_from_numpy(world_view, full_proj, camera_center, tan_fovx,
+                      tan_fovy, width: int, height: int,
+                      device="cuda") -> Camera:
+    f32 = np.float32
+    return Camera(world_view=_t(np.asarray(world_view, f32), device),
+                  full_proj=_t(np.asarray(full_proj, f32), device),
+                  camera_center=_t(np.asarray(camera_center, f32), device),
+                  tan_fovx=_t(np.asarray(tan_fovx, f32), device),
+                  tan_fovy=_t(np.asarray(tan_fovy, f32), device),
+                  width=int(width), height=int(height))
+
+
+def decoder_from_numpy(weights: Sequence[np.ndarray],
+                       biases: Sequence[Optional[np.ndarray]],
+                       norm_output: bool = False,
+                       device="cuda") -> SemanticDecoder:
+    return SemanticDecoder(
+        [_t(np.asarray(w, np.float32), device) for w in weights],
+        [None if b is None else _t(np.asarray(b, np.float32), device)
+         for b in biases],
+        norm_output=bool(norm_output))
+
+
+def lut_from_numpy(lut: np.ndarray, device="cuda") -> torch.Tensor:
+    return _t(np.asarray(lut, np.float32), device)
+
+
+def osh_from_numpy(weight: np.ndarray, bias, device="cuda") -> OSHState:
+    return OSHState(weight=_t(np.asarray(weight, np.float32), device),
+                    bias=_t(np.asarray(bias, np.float32), device))

@@ -94,3 +94,9 @@ def small_scene():
 @pytest.fixture
 def small_camera():
     return make_test_camera()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc (run on the card; "
+        "skips without one)")

@@ -1,0 +1,82 @@
+"""The port stands alone: no file of goi_tpu_torch/ nor chip_smoke.py
+imports jax or the JAX package, and a kernel wrapper handed a CUDA
+tensor launches its kernel or raises (never a silent plain fallback)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from goi_tpu_torch.raster import _nvcc, cuda_blend, gather
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "goi_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "goi_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                "__import__", "import_module") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.lineno, str(node.args[0].value)
+
+
+def test_port_imports_no_jax_and_no_goi_tpu():
+    assert len(FILES) > 20
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
+           for p in FILES for line, mod in _imports(p) if _forbidden(mod)]
+    assert not bad, "\n".join(bad)
+
+
+def test_guard_catches_forbidden_imports(tmp_path):
+    p = tmp_path / "x.py"
+    p.write_text("import jax.numpy as jnp\nfrom goi_tpu.core import ply\n"
+                 "import goi_tpu_torch\nimportlib.import_module('jax')\n")
+    found = [m for _, m in _imports(p) if _forbidden(m)]
+    assert found == ["jax.numpy", "goi_tpu.core", "jax"]
+
+
+@pytest.fixture
+def no_library(monkeypatch, tmp_path):
+    """Every tensor passes the wrapper's device check as a CUDA tensor,
+    and no built library or nvcc is to be found."""
+    monkeypatch.setattr(_nvcc, "is_cuda", lambda t: True)
+    monkeypatch.setattr(_nvcc, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(_nvcc, "_loaded", {})
+    monkeypatch.setattr(_nvcc.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_nvcc, "CUDA_NVCC", str(tmp_path / "no-nvcc"))
+
+
+def test_gather_wrapper_raises_without_library(no_library):
+    before = gather.monotone_gather.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gather.monotone_gather(torch.ones(3, 8),
+                               torch.arange(8, dtype=torch.int32))
+    assert gather.monotone_gather.launches == before
+
+
+def test_blend_wrapper_raises_without_library(no_library):
+    before = cuda_blend.blend_fwd.launches
+    feat = torch.zeros(20, 16)
+    se = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_blend.blend_fwd(feat, se, se + 16, 1)
+    with pytest.raises(ValueError, match="sem_dim"):
+        cuda_blend.blend_fwd(torch.zeros(21, 16), se, se + 16, 1)
+    assert cuda_blend.blend_fwd.launches == before
