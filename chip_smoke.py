@@ -8,21 +8,31 @@ exits non-zero without the final result line:
 
 1. device: CUDA version, the card's name and power limit (nvidia-smi),
    nvcc, triton;
-2. build: compile every CUDA kernel of the query path from
-   goi_tpu_torch/raster/csrc (one nvcc per source, all at once);
+2. build: compile every CUDA kernel of goi_tpu_torch/raster/csrc (one
+   nvcc per source, all at once);
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card, on the inputs the main path gives it (the expansion gather
-   bit-exact; the forward blend within atol = rtol = 5e-5 on a
-   100k-Gaussian 512x512 frame and on the full frame), with times;
-4. main path: a seeded 1,000,000-Gaussian scene (SH degree 3, 10
-   semantic channels), a 10->300 decoder and a 300x256 LUT, saved as
-   the PLY + pickle + LUT.npy triplet and loaded back; QuerySession
+   card, on the inputs the main paths give it, with times: the
+   expansion gather bit-exact; the forward blend within atol = rtol =
+   5e-5 on a 100k-Gaussian 512x512 frame and on the full frame; the
+   blend backward and the block prefix on that 100k frame's backward
+   here and on a full-width training step's in phase 5 (tolerances at
+   TOL_BWD and TOL_PREFIX);
+4. [main] the query path: a seeded 1,000,000-Gaussian scene (SH degree
+   3, 10 semantic channels), a 10->300 decoder and a 300x256 LUT, saved
+   as the PLY + pickle + LUT.npy triplet and loaded back; QuerySession
    answers 12 open-vocabulary query frames at 1296x968 over 3 orbit
-   views, plus one render() per view; launch counts must be > 0; one
-   more frame runs under torch.profiler (device busy share, top
-   kernels); a small scene is checked against the oracle and the CPU
-   path;
-5. a JSON line with every ported kernel's launches, error, times and
+   views, plus one render() per view; the forward kernels' launch
+   counts must be > 0; one more frame runs under torch.profiler
+   (device busy share, top kernels); a small scene is checked against
+   the oracle and the CPU path;
+5. [train] the distillation path on the same scene: 3 cameras at
+   1296x968, seeded 256-dim feature maps, init_codebook to 300 codes,
+   then N_STEPS train_steps with the reduce resolved to 'chain'; the
+   loss must be finite and fall, every kernel must launch, the
+   gradients of one step must be bit-identical over two backward
+   passes, and a small scene's step must match the CPU's; it prints
+   the step time p50/p95, the peak memory and one profiled step;
+6. a JSON line with every ported kernel's launches, error, times and
    bound; then the final JSON line.
 """
 
@@ -46,12 +56,27 @@ PEAK_FP32_PER_S = 67e12
 # output channel
 OPS_WALKED = 16
 OPS_BLENDED_BASE = 4
+# the backward per blended pair: the suffix and dalpha (~8), the six
+# geometric terms (~16), the transmittance step (~6), three operations
+# per output channel (f . g, w g, its share of dalpha) and one add per
+# row field for the sum over the tile's pixels
+OPS_BWD_BLENDED_BASE = 30
 TOL = 5e-5          # tests/test_pallas_blend.py's oracle tolerance
+# the backward: tests/test_pallas_blend.py's gradient bar, rtol and atol
+# relative to the rows' peak (the suffix total - prefix cancels; the
+# plain version's CUDA cumsum/cumprod associate differently)
+TOL_BWD = (2e-3, 2e-4)
+# the block prefix: rtol, and atol relative to the prefixes' peak (an
+# fp32 scan of 512 rows in another order)
+TOL_PREFIX = (1e-4, 1e-5)
 WIDTH, HEIGHT = 1296, 968
 N_GAUSS = 1_000_000
 SEM_DIM, APE_DIM, TAB_LEN = 10, 256, 300
 N_VIEWS = 3
 N_FRAMES = 12       # query frames on the main path, cycling the views
+N_STEPS = 20        # distillation steps on the main path
+N_PROTOS = 12       # prototypes of the seeded feature maps
+KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix")
 
 
 def log(*a):
@@ -119,34 +144,66 @@ def orbit_cams(width, height, n, device, dist=4.5):
     return cams
 
 
-def capture_inputs(scene, cam, cfg):
-    """Run one render and record the arguments the main path hands to
-    each kernel wrapper (the wrappers themselves run as usual)."""
+def capture(run):
+    """Call run() and record the arguments the path hands to each kernel
+    wrapper (the last call of each; the wrappers themselves run as
+    usual)."""
     import torch
-    from goi_tpu_torch.raster import binning, cuda_blend
-    from goi_tpu_torch.raster.render import render
+    from goi_tpu_torch.raster import binning, cuda_blend, reduce
+    sites = {"gather": (binning, "monotone_gather"),
+             "blend": (cuda_blend, "blend_fwd"),
+             "blend_bwd": (cuda_blend, "blend_bwd"),
+             "prefix": (reduce, "prefix_blocks")}
+    orig = {k: getattr(mod, attr) for k, (mod, attr) in sites.items()}
     seen = {}
-    orig = {"gather": binning.monotone_gather,
-            "blend": cuda_blend.blend_fwd}
 
     def recorder(name):
         def rec(*args):
-            seen[name] = args
+            seen[name] = tuple(a.detach() if torch.is_tensor(a) else a
+                               for a in args)
             return orig[name](*args)
         # a wrapper counts on the module attribute it is called through,
         # so the launches of this capture land here and not in the counts
         rec.launches = 0
         return rec
 
-    binning.monotone_gather = recorder("gather")
-    cuda_blend.blend_fwd = recorder("blend")
+    for k, (mod, attr) in sites.items():
+        setattr(mod, attr, recorder(k))
     try:
+        run()
+    finally:
+        for k, (mod, attr) in sites.items():
+            setattr(mod, attr, orig[k])
+    return seen
+
+
+def capture_inputs(scene, cam, cfg):
+    """The forward kernels' inputs of one render."""
+    import torch
+    from goi_tpu_torch.raster.render import render
+
+    def run():
         with torch.no_grad():
             render(scene, cam, torch.zeros(3, device=scene.device), cfg)
-    finally:
-        binning.monotone_gather = orig["gather"]
-        cuda_blend.blend_fwd = orig["blend"]
-    return seen
+    return capture(run)
+
+
+def capture_backward_inputs(scene, cam, cfg, seed):
+    """Every kernel's inputs of one render and its backward, with the
+    gradient of a seeded random linear loss on color and semantics."""
+    import torch
+    from goi_tpu_torch.raster.render import render
+    gen = torch.Generator(device=scene.device).manual_seed(seed)
+
+    def run():
+        sem = scene.semantics.clone().requires_grad_()
+        out = render(scene.replace(semantics=sem), cam,
+                     torch.zeros(3, device=scene.device), cfg)
+        loss = sum((out[k] * torch.randn(out[k].shape, generator=gen,
+                                         device=scene.device)).sum()
+                   for k in ("semantics", "render"))
+        loss.backward()
+    return capture(run)
 
 
 def check_gather(table, idx):
@@ -208,29 +265,286 @@ def check_blend(feat, starts, ends, grid_x, label):
                 library_ms=None)
 
 
-def profile_frame(sess, cam, top=12):
-    """One query frame under torch.profiler: wall time, the device's
-    busy and idle share, and the kernels that take the most device
-    time."""
+def close_to_peak(a, b, rtol, atol_rel):
+    """|a - b| <= rtol |b| + atol_rel max|b|, elementwise; returns
+    (ok, max |a - b|)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    err = (a - b).abs()
+    peak = float(b.abs().max())
+    ok = bool(torch.isfinite(a).all()) and bool(
+        (err <= rtol * b.abs() + atol_rel * peak).all())
+    return ok, float(err.max())
+
+
+def check_blend_bwd(feat, starts, ends, raw, grad, grid_x, label):
+    import torch
+    from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_bwd_plain
+    out = blend_bwd(feat, starts, ends, raw, grad, grid_x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    ref = blend_bwd_plain(feat, starts, ends, raw, grad, grid_x)
+    torch.cuda.synchronize()
+    ok, err = close_to_peak(out, ref, *TOL_BWD)
+    peak = float(ref.abs().max())
+    if not ok:
+        raise AssertionError(f"blend_bwd {label}: max |kernel - plain| "
+                             f"{err} (peak {peak})")
+    n_out = feat.shape[0] - 6
+    walked = float(raw[..., n_out + 1].double().sum())
+    blended = float(raw[..., n_out + 2].double().sum())
+    ms = median_ms(lambda: blend_bwd(feat, starts, ends, raw, grad, grid_x))
+    plain_ms = median_ms(
+        lambda: blend_bwd_plain(feat, starts, ends, raw, grad, grid_x),
+        iters=2, warmup=1)
+    nbytes = 4 * (feat.numel() + starts.numel() + ends.numel()
+                  + raw.numel() + grad.numel() + out.numel())
+    ops = OPS_WALKED * walked + (OPS_BWD_BLENDED_BASE + 3 * n_out
+                                 + feat.shape[0]) * blended
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FP32_PER_S * 1e3
+    log(f"[kernels] blend_bwd {label}: tiles={starts.numel()} "
+        f"M={feat.shape[1]} max_err={err:.3e} (peak {peak:.3e}, tol rtol "
+        f"{TOL_BWD[0]} + {TOL_BWD[1]} x peak); pairs walked={walked:.0f} "
+        f"blended={blended:.0f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+        f"operations {ops_ms:.4f})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None)
+
+
+def check_prefix(rows, okf, blk, label):
+    import torch
+    from goi_tpu_torch.raster.reduce import prefix_blocks, prefix_blocks_plain
+    inner, tot = prefix_blocks(rows, okf, blk)
+    torch.cuda.synchronize()
+    ref_inner, ref_tot = prefix_blocks_plain(rows, okf, blk)
+    torch.cuda.synchronize()
+    ok_i, err_i = close_to_peak(inner, ref_inner, *TOL_PREFIX)
+    ok_t, err_t = close_to_peak(tot, ref_tot, TOL_PREFIX[0],
+                                TOL_PREFIX[1] * float(
+                                    ref_inner.abs().max()) / max(
+                                    float(ref_tot.abs().max()), 1e-30))
+    err = max(err_i, err_t)
+    if not (ok_i and ok_t):
+        raise AssertionError(f"prefix {label}: max |kernel - plain| {err}")
+    m, d = rows.shape
+    nb = m // blk
+    ms = median_ms(lambda: prefix_blocks(rows, okf, blk))
+    plain_ms = median_ms(lambda: prefix_blocks_plain(rows, okf, blk))
+    lib_ms = median_ms(lambda: torch.cumsum(rows.view(nb, blk, d), dim=1))
+    nbytes = 4 * (rows.numel() + (0 if okf is None else okf.numel())
+                  + inner.numel() + tot.numel())
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = m * d / PEAK_FP32_PER_S * 1e3
+    log(f"[kernels] prefix {label}: rows=({m}, {d}) block={blk} "
+        f"masked={okf is not None} max_err={err:.3e} (tol rtol "
+        f"{TOL_PREFIX[0]} + {TOL_PREFIX[1]} x peak); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, cumsum {lib_ms:.4f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms (bytes)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=lib_ms)
+
+
+def profile(run, what, top=12):
+    """run() under torch.profiler: wall time, the device's busy and idle
+    share, and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.render_view(cam)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[profile] query frame {wall_ms:.2f} ms wall, device busy "
+    log(f"[profile] {what} {wall_ms:.2f} ms wall, device busy "
         f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{sum(e.count for e in kernels)} device ops")
     kernels.sort(key=lambda e: -e.self_device_time_total)
     for e in kernels[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
-            f"x{e.count:<4d} {e.key[:90]}")
+            f"x{e.count:<4d} {e.key[:110]}")
+
+
+def feature_maps(n, seed, width, height, device):
+    """Seeded APE-like (256, H, W) maps: N_PROTOS prototypes laid out by
+    a random label map at 1/8 resolution, upsampled, plus a little
+    per-pixel noise (so every pixel's feature is distinct)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    protos = torch.as_tensor(rng.normal(0, 1, (N_PROTOS, APE_DIM))
+                             .astype(np.float32), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    maps = []
+    for _ in range(n):
+        lab = torch.as_tensor(rng.integers(
+            0, N_PROTOS, ((height + 7) // 8, (width + 7) // 8)),
+            device=device)
+        lab = lab.repeat_interleave(8, 0).repeat_interleave(8, 1)
+        fm = protos[lab[:height, :width]].permute(2, 0, 1).contiguous()
+        fm += 0.05 * torch.randn(fm.shape, generator=gen, device=device)
+        maps.append(fm)
+    return maps
+
+
+def step_grads(state, cam, gt, bg, cfg):
+    """The gradients of one distillation step's loss (no update)."""
+    from goi_tpu_torch.train.distill import distill_loss
+    leaves = [p for p in state.scene.params().values() if p.requires_grad]
+    leaves += list(state.decoder.parameters()) + [state.lut]
+    for p in leaves:
+        p.grad = None
+    loss, aux = distill_loss(state, cam, gt, bg, cfg)
+    loss.backward()
+    grads = [p.grad.clone() for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return aux, grads
+
+
+def train_phase(scene, cams, cfg, stats):
+    """[train]: distillation at full width through the trainer API."""
+    import torch
+    from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
+    from goi_tpu_torch.raster.gather import monotone_gather
+    from goi_tpu_torch.raster.reduce import prefix_blocks
+    from goi_tpu_torch.raster.render import _effective_reduce
+    from goi_tpu_torch.semantic.codebook import (SemanticDecoder,
+                                                 init_codebook)
+    from goi_tpu_torch.train.distill import create_distill_state
+    from goi_tpu_torch.train.optim import OptimConfig
+    if _effective_reduce(cfg) != "chain":
+        raise AssertionError(f"reduce resolves to {_effective_reduce(cfg)}")
+    t0 = time.time()
+    maps = feature_maps(N_VIEWS, 5, WIDTH, HEIGHT, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.time()
+    gen = torch.Generator().manual_seed(0)
+    lut = init_codebook(gen, maps, tab_len=TAB_LEN)
+    torch.cuda.synchronize()
+    log(f"[train] {N_VIEWS} feature maps {tuple(maps[0].shape)} in "
+        f"{t1 - t0:.1f} s; init_codebook -> {tuple(lut.shape)} in "
+        f"{time.time() - t1:.1f} s")
+    decoder = SemanticDecoder.create(gen, dim_in=SEM_DIM, dim_out=TAB_LEN,
+                                     device="cuda")
+    state, train_step = create_distill_state(scene, decoder, lut,
+                                             OptimConfig())
+    bg = torch.zeros(3, device="cuda")
+
+    # step 1, captured: the backward kernels at the main path's shapes
+    losses = []
+
+    def first():
+        _, aux = train_step(state, cams[0], maps[0], bg, cfg)
+        losses.append(float(aux["total"]))
+    seen = capture(first)
+    stats["blend_bwd"] = check_blend_bwd(
+        *seen["blend_bwd"], label=f"1M {WIDTH}x{HEIGHT} train step")
+    stats["prefix"] = check_prefix(
+        *seen["prefix"], label=f"1M {WIDTH}x{HEIGHT} train step")
+    del seen
+
+    # two backward passes of one step: bit-identical gradients
+    _, g1 = step_grads(state, cams[1], maps[1], bg, cfg)
+    _, g2 = step_grads(state, cams[1], maps[1], bg, cfg)
+    if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+        raise AssertionError("gradients differ between two backward passes")
+    log(f"[train] gradients of one step bit-identical over two backward "
+        f"passes ({len(g1)} tensors, {sum(g.numel() for g in g1)} values)")
+    del g1, g2
+
+    kernels = (monotone_gather, blend_fwd, blend_bwd, prefix_blocks)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(N_STEPS):
+        cam = cams[(i + 1) % N_VIEWS]
+        t0 = time.perf_counter()
+        _, aux = train_step(state, cam, maps[(i + 1) % N_VIEWS], bg, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(aux["total"]))
+    launches = dict(zip(("gather", "blend", "blend_bwd", "prefix"),
+                        (k.launches for k in kernels)))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    p50, p95 = np.percentile(step_ms, [50, 95])
+    log(f"[train] {N_STEPS} steps at {WIDTH}x{HEIGHT}, 1M Gaussians, "
+        f"S={SEM_DIM}, codebook {TAB_LEN}x{APE_DIM}, reduce "
+        f"{_effective_reduce(cfg)}, max_instances={cfg.max_instances}: "
+        f"step p50 {p50:.1f} ms, p95 {p95:.1f} ms, max {max(step_ms):.1f} "
+        f"ms; peak memory {peak_gb:.2f} GiB; launches {launches}")
+    log(f"[train] losses {' '.join(f'{x:.4f}' for x in losses)}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss")
+    if not np.mean(losses[-N_VIEWS:]) < np.mean(losses[:N_VIEWS]):
+        raise AssertionError("the loss did not fall")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    slots = int(aux["num_slots"])
+    if slots > cfg.max_instances:
+        raise AssertionError(f"num_slots {slots} > {cfg.max_instances}")
+    i = N_STEPS + 1
+    profile(lambda: train_step(state, cams[i % N_VIEWS], maps[i % N_VIEWS],
+                               bg, cfg), "distillation step", top=20)
+    return launches
+
+
+def small_train_check():
+    """A small scene's distillation step on the card against the same
+    step on the CPU (all of position, opacity, color and semantics
+    trained, so preprocess's backward runs too), and a short
+    train_distillation run on the card."""
+    import torch
+    from goi_tpu_torch.semantic.codebook import SemanticDecoder
+    from goi_tpu_torch.train.distill import (create_distill_state,
+                                             train_distillation)
+    from goi_tpu_torch.raster.render import RasterConfig
+    from goi_tpu_torch.train.optim import OptimConfig
+    tiny = make_scene(2000, seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    decoder = SemanticDecoder.create(gen, dim_in=SEM_DIM, dim_out=TAB_LEN,
+                                     device="cpu")
+    lut = torch.randn((TAB_LEN, APE_DIM), generator=gen)
+    gt = torch.randn((APE_DIM, 64, 96), generator=gen)
+    cfg = RasterConfig(max_instances=1 << 15)
+    ocfg = OptimConfig(position_finetune=True, opacity_finetune=True,
+                       feature_finetune=True)
+    got = []
+    for dev in ("cuda", "cpu"):
+        state, _ = create_distill_state(tiny.to(dev), decoder.to(dev),
+                                        lut.to(dev), ocfg)
+        cam = orbit_cams(96, 64, 1, dev, dist=4.0)[0]
+        aux, grads = step_grads(state, cam, gt.to(dev),
+                                torch.zeros(3, device=dev), cfg)
+        got.append(({k: float(v.detach()) for k, v in aux.items()},
+                    [g.cpu() for g in grads]))
+    (aux_g, g_g), (aux_c, g_c) = got
+    for k in ("lab", "sl", "sl1", "recc", "total"):
+        if not math.isclose(aux_g[k], aux_c[k], rel_tol=1e-4):
+            raise AssertionError(f"{k}: card {aux_g[k]} vs CPU {aux_c[k]}")
+    worst = 0.0
+    for a, b in zip(g_g, g_c):
+        ok, err = close_to_peak(a, b, *TOL_BWD)
+        if not ok:
+            raise AssertionError(f"step gradients card vs CPU: {err} "
+                                 f"(peak {float(b.abs().max())})")
+        worst = max(worst, err)
+    log(f"[train] small scene: a step's loss terms and {len(g_g)} gradient "
+        f"tensors on the card match the CPU's (max grad diff {worst:.2e})")
+    maps = feature_maps(2, 9, 96, 64, "cuda")
+    state = train_distillation(
+        tiny.to("cuda"), orbit_cams(96, 64, 2, "cuda", dist=4.0), maps,
+        tab_len=16, iterations=3, log_every=1,
+        raster_cfg=RasterConfig(max_instances=1 << 15))
+    if state.step != 3:
+        raise AssertionError("train_distillation did not take 3 steps")
 
 
 def main() -> int:
@@ -256,13 +570,15 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.time()
-    _nvcc.build(["gather", "blend_fwd"])
-    log(f"[build] gather.cu + blend_fwd.cu in {time.time() - t0:.1f} s")
+    _nvcc.build(KERNEL_SOURCES)
+    log(f"[build] {' + '.join(f'{k}.cu' for k in KERNEL_SOURCES)} in "
+        f"{time.time() - t0:.1f} s")
 
     from goi_tpu_torch.app.session import QuerySession
     from goi_tpu_torch.data import scene as triplet
-    from goi_tpu_torch.raster.cuda_blend import blend_fwd
+    from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
     from goi_tpu_torch.raster.gather import monotone_gather
+    from goi_tpu_torch.raster.reduce import prefix_blocks
     from goi_tpu_torch.raster.render import (RasterConfig, render,
                                              suggest_budgets)
     from goi_tpu_torch.semantic.codebook import SemanticDecoder
@@ -271,8 +587,11 @@ def main() -> int:
     small = make_scene(100_000, seed=1, device="cuda")
     small_cam = orbit_cams(512, 512, 1, "cuda")[0]
     mi, _ = suggest_budgets(small, small_cam, margin=1.2)
-    seen = capture_inputs(small, small_cam, RasterConfig(max_instances=mi))
+    seen = capture_backward_inputs(
+        small, small_cam, RasterConfig(max_instances=mi, reduce="chain"), 1)
     check_blend(*seen["blend"], label="100k 512x512")
+    check_blend_bwd(*seen["blend_bwd"], label="100k 512x512")
+    check_prefix(*seen["prefix"], label="100k 512x512")
     del small, seen
 
     scene = make_scene(N_GAUSS, seed=0, device="cuda")
@@ -286,7 +605,7 @@ def main() -> int:
                                   label=f"1M {WIDTH}x{HEIGHT}")}
     del seen
 
-    # ---- 4. main path ----
+    # ---- 4. main path: query ----
     gen = torch.Generator().manual_seed(0)
     decoder = SemanticDecoder.create(gen, dim_in=SEM_DIM, dim_out=TAB_LEN,
                                      device="cuda")
@@ -308,8 +627,8 @@ def main() -> int:
     sess.render_view(cams[0])           # warm-up, before the counts
     torch.cuda.synchronize()
 
-    monotone_gather.launches = 0
-    blend_fwd.launches = 0
+    for k in (monotone_gather, blend_fwd, blend_bwd, prefix_blocks):
+        k.launches = 0
     frame_ms = []
     for i in range(N_FRAMES):
         cam = cams[i % N_VIEWS]
@@ -335,6 +654,8 @@ def main() -> int:
             f" <= {cfg.max_instances}, max_tile_depth={depth}")
     launches = {"gather": monotone_gather.launches,
                 "blend": blend_fwd.launches}
+    if blend_bwd.launches or prefix_blocks.launches:
+        raise AssertionError("the query path ran a backward kernel")
     p50, p95 = np.percentile(frame_ms, [50, 95])
     log(f"[main] {N_FRAMES} query frames + {N_VIEWS} renders at "
         f"{WIDTH}x{HEIGHT}: frame p50 {p50:.1f} ms, p95 {p95:.1f} ms, "
@@ -342,7 +663,7 @@ def main() -> int:
         f" blend={launches['blend']}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
-    profile_frame(sess, cams[0])
+    profile(lambda: sess.render_view(cams[0]), "query frame")
 
     # small-input agreement: kernel path vs the oracle, and the whole
     # query frame on the card vs on the CPU (plain versions)
@@ -368,8 +689,14 @@ def main() -> int:
         raise AssertionError(f"query frame card vs CPU: {e}")
     log(f"[main] small scene: kernel path matches the oracle and the CPU "
         f"query frame (max diff {e:.2e})")
+    del sess, tsess, csess, tiny
 
-    # ---- 5. kernels line, result ----
+    # ---- 5. main path: distillation ----
+    train_launches = train_phase(scene, cams, cfg, stats)
+    small_train_check()
+    launches = {k: launches.get(k, 0) + n for k, n in train_launches.items()}
+
+    # ---- 6. kernels line, result ----
     kernels = [
         dict(name="monotone_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",
@@ -379,6 +706,14 @@ def main() -> int:
              source="goi_tpu_torch/raster/csrc/blend_fwd.cu",
              replaces="goi_tpu/raster/pallas_blend.py:832",
              launches=launches["blend"], **stats["blend"]),
+        dict(name="blend_bwd", route="cuda",
+             source="goi_tpu_torch/raster/csrc/blend_bwd.cu",
+             replaces="goi_tpu/raster/pallas_blend.py:902",
+             launches=launches["blend_bwd"], **stats["blend_bwd"]),
+        dict(name="prefix", route="cuda",
+             source="goi_tpu_torch/raster/csrc/prefix.cu",
+             replaces="goi_tpu/raster/pallas_blend.py:245",
+             launches=launches["prefix"], **stats["prefix"]),
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

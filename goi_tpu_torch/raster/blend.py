@@ -4,10 +4,10 @@ blend math.
 Counterpart of goi_tpu/raster/blend.py. One 16x16 tile is one unit of
 work (ref:cuda_rasterizer/config.h:16-17). `chunk_weights` is the math
 of one chunk of a tile's depth-ordered instances, vectorized over
-(tiles, pixels, chunk); the plain version of the forward-blend kernel
-(raster/cuda_blend.py) composes it chunk by chunk. The XLA-backend
-`blend_tiles` (with its `tile_cap` truncation) is not ported: the port's
-blend walks each tile's exact range.
+(tiles, pixels, chunk); the plain versions of the forward- and
+backward-blend kernels (raster/cuda_blend.py) compose it chunk by
+chunk. The XLA-backend `blend_tiles` (with its `tile_cap` truncation)
+is not ported: the port's blend walks each tile's exact range.
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ def chunk_weights(mean2d, conic, opacity, m, xs, ys, t_all):
 
     The transmittance is one sequential product with the carry in front,
     T_i = T_{i-1} (1 - alpha_i), the order in which the CUDA kernel
-    multiplies. Returns a dict of (T, P, k) tensors: alpha, valid, q,
+    multiplies. Returns a dict of (T, P, k) tensors: dx, dy (mean minus
+    pixel), raw = opacity exp(power) (unclamped), alpha, valid, q,
     p_incl (T after the instance), p_excl (T before it), active (valid
     and not stopped) and w = alpha T_before on active instances."""
     dx = mean2d[:, None, :, 0] - xs[:, :, None]        # (T, P, k)
@@ -49,8 +50,8 @@ def chunk_weights(mean2d, conic, opacity, m, xs, ys, t_all):
     cb = conic[:, None, :, 1]
     cc = conic[:, None, :, 2]
     power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    alpha = torch.clamp(opacity[:, None, :] * torch.exp(power),
-                        max=ALPHA_CLAMP)
+    raw = opacity[:, None, :] * torch.exp(power)
+    alpha = torch.clamp(raw, max=ALPHA_CLAMP)
     valid = m[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
     q = torch.where(valid, 1.0 - alpha, torch.ones_like(alpha))
     p_all = torch.cumprod(torch.cat([t_all[:, :, None], q], dim=-1), dim=-1)
@@ -58,8 +59,8 @@ def chunk_weights(mean2d, conic, opacity, m, xs, ys, t_all):
     p_excl = p_all[..., :-1]
     active = valid & (p_incl >= T_EPS)
     w = torch.where(active, alpha * p_excl, torch.zeros_like(alpha))
-    return dict(alpha=alpha, valid=valid, q=q, p_incl=p_incl,
-                p_excl=p_excl, active=active, w=w)
+    return dict(dx=dx, dy=dy, raw=raw, alpha=alpha, valid=valid, q=q,
+                p_incl=p_incl, p_excl=p_excl, active=active, w=w)
 
 
 def tiles_to_image(tiles: torch.Tensor, grid_x: int, grid_y: int,

@@ -1,12 +1,15 @@
 """Public render API.
 
-Counterpart of goi_tpu/raster/render.py (forward): preprocess ->
-chunked binning -> tiled blend, returning the reference render()
-contract (ref:gaussian_renderer/__init__.py:99-105) plus the budget
-counters. The frame runs on the device of the scene's tensors: the
-hand-written CUDA kernels for CUDA tensors, their plain versions for
-CPU tensors. `trace()`, `render_batch` and the aligned layout are not
-ported yet; the blend's backward raises NotImplementedError.
+Counterpart of goi_tpu/raster/render.py: preprocess -> chunked binning
+-> tiled blend, returning the reference render() contract
+(ref:gaussian_renderer/__init__.py:99-105) plus the budget counters.
+The frame runs on the device of the scene's tensors: the hand-written
+CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
+`render` is differentiable: torch autograd through preprocess (as the
+JAX package uses JAX autodiff there, PARITY.md N5), binning under
+no_grad, and the blend's own backward (raster/cuda_blend.py) with the
+reduce that `_effective_reduce` picks. `trace()`, `render_batch` and the
+aligned layout are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,9 +38,9 @@ class RasterConfig:
         package's fixed budget and overflow counters.
     backend: 'cuda' (the kernels on CUDA tensors, their plain versions
         on CPU tensors) or 'reference' (the per-pixel oracle).
-    reduce: instance->Gaussian gradient reduction, 'auto' | 'scatter' |
-        'chain'; resolved by _effective_reduce ('chain' also makes the
-        binning export its sort permutation).
+    reduce: instance->Gaussian gradient reduction of the backward,
+        'auto' | 'scatter' | 'chain'; resolved by _effective_reduce
+        ('chain' also makes the binning export its sort permutation).
     cull: exact ellipse/tile overlap cull in binning (output-exact).
     layout: 'chunked' only; 'aligned' is not ported yet.
     """
@@ -160,13 +163,13 @@ def render(scene: GaussianScene, cam: Camera, bg_color,
                     semantic_masks=semantic_masks)
     if mean2d_offset is not None:
         sp = dataclasses.replace(sp, mean2d=sp.mean2d + mean2d_offset)
+    reduce = _effective_reduce(config)
     with torch.no_grad():   # integer stages: nothing to differentiate
         binning = bin_splats_chunked(
             sp, grid_x=grid_x, grid_y=grid_y,
             max_instances=config.max_instances, chunk_k=BLEND_K,
-            cull=config.cull,
-            export_perm=(_effective_reduce(config) == "chain"))
+            cull=config.cull, export_perm=(reduce == "chain"))
     bg = torch.as_tensor(bg_color, dtype=torch.float32,
                          device=scene.xyz.device)
-    tiles = blend_tiles_cuda(sp, binning, bg, grid_x=grid_x)
+    tiles = blend_tiles_cuda(sp, binning, bg, grid_x=grid_x, reduce=reduce)
     return _assemble_out(tiles, sp, binning, cam, grid_x, grid_y)

@@ -1,19 +1,23 @@
-"""Semantic codebook decoder.
+"""Semantic codebook: the decoder MLP and the k-means codebook init.
 
-Counterpart of goi_tpu/semantic/codebook.py (inference half): an MLP
-decoding the rendered 10-dim semantic feature into codebook logits
+Counterpart of goi_tpu/semantic/codebook.py: an MLP decoding the
+rendered 10-dim semantic feature into codebook logits
 (ref:scene/semantic_model.py:13-63; the GOI default is one 10->300
-layer with bias, ref:train.py:64). Checkpoints use the JAX package's
-pickle of numpy arrays, so either package loads the other's files.
-`kmeans` and `init_codebook` belong to training and are not ported yet.
+layer with bias, ref:train.py:64), and the two-level cosine k-means that
+seeds the 300x256 lookup table (ref:train.py:36-56, 79-87).
+Checkpoints use the JAX package's pickle of numpy arrays, so either
+package loads the other's files. Random draws come from an explicit CPU
+`torch.Generator`; they are not JAX's draws, so k-means agrees with the
+JAX package's only where the clustering does not hinge on the draw.
 """
 
 from __future__ import annotations
 
 import math
 import pickle
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -98,3 +102,65 @@ class SemanticDecoder(nn.Module):
             [None if b is None else torch.as_tensor(b, device=device)
              for b in blob["biases"]],
             norm_output=blob["args"]["norm"])
+
+
+def normalize_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows scaled to unit norm, with the JAX package's eps guard."""
+    return x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True),
+                           min=1e-8)
+
+
+def kmeans(generator: torch.Generator, x: torch.Tensor, ncluster: int,
+           niter: int = 10) -> torch.Tensor:
+    """Cosine k-means on the unit sphere (ref:train.py:36-56): normalize
+    points, init from a random permutation (tiled when n < ncluster),
+    assign by max dot product, recompute means, re-init dead clusters
+    from a fresh permutation. The sums are a one-hot matmul, so they
+    are the same on every run."""
+    n = x.shape[0]
+    x = normalize_rows(x)
+
+    def pick():
+        perm = torch.randperm(n, generator=generator)
+        return x[perm[torch.arange(ncluster) % n].to(x.device)]
+
+    centers = pick()
+    for _ in range(niter):
+        centers = normalize_rows(centers)
+        assign = torch.argmax(x @ centers.T, dim=1, keepdim=True)
+        one_hot = torch.zeros((n, ncluster), dtype=x.dtype,
+                              device=x.device).scatter_(1, assign, 1.0)
+        sums = one_hot.T @ x
+        cnt = one_hot.sum(0)
+        dead = cnt == 0
+        centers = torch.where(dead[:, None], pick(),
+                              sums / torch.where(dead, 1.0, cnt)[:, None])
+    return centers
+
+
+def init_codebook(generator: torch.Generator, feature_maps: Sequence,
+                  tab_len: int = 300, per_image_clusters: int = 80,
+                  stride: int = 8, max_points_per_image: int = 65536,
+                  device=None) -> torch.Tensor:
+    """Two-level codebook init (ref:train.py:79-87): per-image
+    k-means(80) over the distinct pixel features of every `stride`-th
+    map (subsampled by np.random.default_rng(i).choice past
+    max_points_per_image), then k-means(tab_len) over the concatenated
+    per-image centers.
+
+    feature_maps: (C, H, W) or (HW, C) arrays or tensors; each is moved
+    to `device` (default: its own) and clustered there."""
+    partials = []
+    for i, fm in enumerate(feature_maps[::stride]):
+        fm = torch.as_tensor(fm, dtype=torch.float32, device=device)
+        if fm.dim() == 3:
+            fm = fm.reshape(fm.shape[0], -1).T          # (HW, C)
+        # the distinct rows in lexicographic order, as np.unique(axis=0)
+        fm = torch.unique(fm, dim=0)
+        if fm.shape[0] > max_points_per_image:
+            idx = np.random.default_rng(i).choice(
+                fm.shape[0], max_points_per_image, replace=False)
+            fm = fm[torch.as_tensor(idx, device=fm.device)]
+        k = min(per_image_clusters, fm.shape[0])
+        partials.append(kmeans(generator, fm, k))
+    return kmeans(generator, torch.cat(partials, 0), tab_len)

@@ -1,0 +1,4 @@
+from goi_tpu_torch.train.optim import (OptimConfig, expon_lr_schedule,
+                                       make_scene_optimizer)
+
+__all__ = ["OptimConfig", "make_scene_optimizer", "expon_lr_schedule"]

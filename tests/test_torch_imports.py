@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from goi_tpu_torch.raster import _nvcc, cuda_blend, gather
+from goi_tpu_torch.raster import _nvcc, cuda_blend, gather, reduce
 
 torch.set_num_threads(1)
 
@@ -80,3 +80,67 @@ def test_blend_wrapper_raises_without_library(no_library):
     with pytest.raises(ValueError, match="sem_dim"):
         cuda_blend.blend_fwd(torch.zeros(21, 16), se, se + 16, 1)
     assert cuda_blend.blend_fwd.launches == before
+
+
+def test_blend_bwd_wrapper_raises_without_library(no_library):
+    before = cuda_blend.blend_bwd.launches
+    feat = torch.zeros(20, 16)
+    se = torch.zeros(1, dtype=torch.int32)
+    raw = torch.zeros(1, 256, 17)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_blend.blend_bwd(feat, se, se + 16, raw, raw, 1)
+    with pytest.raises(ValueError, match="raw and grad"):
+        cuda_blend.blend_bwd(feat, se, se + 16, raw[:, :, :5], raw, 1)
+    assert cuda_blend.blend_bwd.launches == before
+
+
+def test_prefix_wrapper_raises_without_library(no_library):
+    before = reduce.prefix_blocks.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        reduce.prefix_blocks(torch.zeros(512, 4))
+    with pytest.raises(TypeError):
+        reduce.prefix_blocks(torch.zeros(512, 4, dtype=torch.float64))
+    assert reduce.prefix_blocks.launches == before
+
+
+
+
+def _atomic_float_sums(path: Path):
+    """Calls that sum with float atomics on CUDA: index_add(_),
+    scatter_add(_), index_put(_) with accumulate=True and
+    scatter_reduce(_) with a sum."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        name = getattr(node.func, "attr", getattr(node.func, "id", ""))
+        base = name.rstrip("_")
+        kw = {k.arg: k.value for k in node.keywords}
+        if base in ("index_add", "scatter_add"):
+            yield node.lineno, name
+        elif base == "index_put" and isinstance(
+                kw.get("accumulate"), ast.Constant) \
+                and kw["accumulate"].value:
+            yield node.lineno, name
+        elif base == "scatter_reduce" and any(
+                isinstance(a, ast.Constant) and a.value == "sum"
+                for a in list(node.args) + list(kw.values())):
+            yield node.lineno, name
+
+
+def test_port_sums_without_float_atomics():
+    """No module of the port sums through float atomics, so every
+    backward gives the same bits on the card."""
+    bad = [f"{p.relative_to(ROOT)}:{line} calls {name}"
+           for p in FILES for line, name in _atomic_float_sums(p)]
+    assert not bad, "\n".join(bad)
+
+
+def test_atomic_guard_catches_accumulating_calls(tmp_path):
+    p = tmp_path / "x.py"
+    p.write_text("a.index_add_(0, i, v)\nb.scatter_add(0, i, v)\n"
+                 "c.index_put_((i,), v, accumulate=True)\n"
+                 "d.scatter_reduce_(0, i, v, 'sum')\n"
+                 "e.index_put_((i,), v)\nf.scatter_reduce_(0, i, v, 'amax')\n")
+    assert [n for _, n in _atomic_float_sums(p)] == [
+        "index_add_", "scatter_add", "index_put_", "scatter_reduce_"]
