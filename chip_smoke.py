@@ -30,9 +30,23 @@ exits non-zero without the final result line:
    then N_STEPS train_steps with the reduce resolved to 'chain'; the
    loss must be finite and fall, every kernel must launch, the
    gradients of one step must be bit-identical over two backward
-   passes, and a small scene's step must match the CPU's; it prints
-   the step time p50/p95, the peak memory and one profiled step;
-6. a JSON line with every ported kernel's launches, error, times and
+   passes and with RasterConfig(dense_reduce=True) (the fused
+   prefix-boundary kernel, held bit-identical to the prefix kernel's
+   read-out), and a small scene's step must match the CPU's; it prints
+   the step time p50/p95 (also over DENSE_STEPS fused-reduce steps), both
+   reduces' device times, the peak memory and one profiled step;
+6. [trace] 2D->3D lifting on the same scene: trace() of a seeded
+   (10, H, W) normal feature map over the 3 views at 1296x968 (reduce
+   'chain', one view also with dense_reduce=True); the trace kernel
+   against its plain version on the 100k 512x512 frame and on one full
+   view (hit counts exact, rows within TOL_TRACE), trace's render
+   against render()'s within 1e-5, num_gsem a multiple of 10 with hits,
+   a small scene's trace on the card against the CPU; p50/p95 wall time
+   and one profiled call;
+7. [micro] the micro-benchmark (goi_tpu_torch/examples/micro_sortpayload.py)
+   at its default sizes; the mono row gather bit-exact against its
+   plain version and timed beside torch.index_select;
+8. a JSON line with every ported kernel's launches, error, times and
    bound; then the final JSON line.
 """
 
@@ -69,6 +83,11 @@ TOL_BWD = (2e-3, 2e-4)
 # the block prefix: rtol, and atol relative to the prefixes' peak (an
 # fp32 scan of 512 rows in another order)
 TOL_PREFIX = (1e-4, 1e-5)
+# the trace kernel's lifted rows: rtol, and atol relative to the rows'
+# peak (sums of up to 256 pixels' features in another order); the hit
+# counts, sums of ones, exactly
+TOL_TRACE = (1e-4, 1e-5)
+TOL_TRACE_RENDER = 1e-5   # tests/test_trace.py's render bar
 WIDTH, HEIGHT = 1296, 968
 N_GAUSS = 1_000_000
 SEM_DIM, APE_DIM, TAB_LEN = 10, 256, 300
@@ -76,7 +95,11 @@ N_VIEWS = 3
 N_FRAMES = 12       # query frames on the main path, cycling the views
 N_STEPS = 20        # distillation steps on the main path
 N_PROTOS = 12       # prototypes of the seeded feature maps
-KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix")
+DENSE_STEPS = 5     # distillation steps with the fused reduce
+N_TRACES = 6        # trace() calls on the main path, cycling the views
+MICRO_ITERS = 5     # steps per figure of the micro-benchmark
+KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "trace",
+                  "prefix_boundary", "mono_rows")
 
 
 def log(*a):
@@ -148,12 +171,17 @@ def capture(run):
     """Call run() and record the arguments the path hands to each kernel
     wrapper (the last call of each; the wrappers themselves run as
     usual)."""
+    import importlib
     import torch
     from goi_tpu_torch.raster import binning, cuda_blend, reduce
+    # the module (the package re-exports its function `render`)
+    render_mod = importlib.import_module("goi_tpu_torch.raster.render")
     sites = {"gather": (binning, "monotone_gather"),
              "blend": (cuda_blend, "blend_fwd"),
              "blend_bwd": (cuda_blend, "blend_bwd"),
-             "prefix": (reduce, "prefix_blocks")}
+             "prefix": (reduce, "prefix_blocks"),
+             "trace": (render_mod, "trace_fwd"),
+             "prefix_boundary": (reduce, "prefix_boundary")}
     orig = {k: getattr(mod, attr) for k, (mod, attr) in sites.items()}
     seen = {}
 
@@ -410,10 +438,8 @@ def step_grads(state, cam, gt, bg, cfg):
 
 def train_phase(scene, cams, cfg, stats):
     """[train]: distillation at full width through the trainer API."""
+    import dataclasses
     import torch
-    from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
-    from goi_tpu_torch.raster.gather import monotone_gather
-    from goi_tpu_torch.raster.reduce import prefix_blocks
     from goi_tpu_torch.raster.render import _effective_reduce
     from goi_tpu_torch.semantic.codebook import (SemanticDecoder,
                                                  init_codebook)
@@ -457,11 +483,21 @@ def train_phase(scene, cams, cfg, stats):
         raise AssertionError("gradients differ between two backward passes")
     log(f"[train] gradients of one step bit-identical over two backward "
         f"passes ({len(g1)} tensors, {sum(g.numel() for g in g1)} values)")
-    del g1, g2
+    # the same step with the fused reduce: the same bits
+    dense_cfg = dataclasses.replace(cfg, dense_reduce=True)
+    g3 = []
+    seen = capture(lambda: g3.extend(
+        step_grads(state, cams[1], maps[1], bg, dense_cfg)[1]))
+    if not all(torch.equal(a, b) for a, b in zip(g1, g3)):
+        raise AssertionError("gradients with dense_reduce differ")
+    log("[train] the step's gradients with dense_reduce=True are "
+        "bit-identical to the unfused chain's")
+    del g1, g2, g3
+    stats["prefix_boundary"] = check_prefix_boundary(
+        *seen["prefix_boundary"], label=f"1M {WIDTH}x{HEIGHT} train step")
+    del seen
 
-    kernels = (monotone_gather, blend_fwd, blend_bwd, prefix_blocks)
-    for k in kernels:
-        k.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for i in range(N_STEPS):
@@ -471,8 +507,8 @@ def train_phase(scene, cams, cfg, stats):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(aux["total"]))
-    launches = dict(zip(("gather", "blend", "blend_bwd", "prefix"),
-                        (k.launches for k in kernels)))
+    launches = {k: n for k, n in read_counts().items()
+                if k in ("gather", "blend", "blend_bwd", "prefix")}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     p50, p95 = np.percentile(step_ms, [50, 95])
     log(f"[train] {N_STEPS} steps at {WIDTH}x{HEIGHT}, 1M Gaussians, "
@@ -493,6 +529,27 @@ def train_phase(scene, cams, cfg, stats):
     i = N_STEPS + 1
     profile(lambda: train_step(state, cams[i % N_VIEWS], maps[i % N_VIEWS],
                                bg, cfg), "distillation step", top=20)
+
+    # DENSE_STEPS more steps with the fused reduce
+    reset_counts()
+    dense_ms = []
+    for i in range(DENSE_STEPS):
+        t0 = time.perf_counter()
+        _, aux = train_step(state, cams[i % N_VIEWS], maps[i % N_VIEWS], bg,
+                            dense_cfg)
+        torch.cuda.synchronize()
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(float(aux["total"])):
+            raise AssertionError("non-finite loss with dense_reduce")
+    counts = read_counts()
+    if counts["prefix_boundary"] != DENSE_STEPS or counts["prefix"]:
+        raise AssertionError(f"dense_reduce steps launched {counts}")
+    log(f"[train] {DENSE_STEPS} steps with dense_reduce=True: step p50 "
+        f"{np.percentile(dense_ms, 50):.1f} ms, max {max(dense_ms):.1f} ms; "
+        f"launches prefix_boundary={counts['prefix_boundary']} prefix=0")
+    launches["prefix_boundary"] = counts["prefix_boundary"]
+    for k in ("gather", "blend", "blend_bwd"):
+        launches[k] += counts[k]
     return launches
 
 
@@ -547,6 +604,291 @@ def small_train_check():
         raise AssertionError("train_distillation did not take 3 steps")
 
 
+def kernel_wrappers():
+    """The kernels line's names -> each kernel's wrapper (its launch
+    count is the wrapper's `launches`)."""
+    from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
+    from goi_tpu_torch.raster.cuda_trace import trace_fwd
+    from goi_tpu_torch.raster.gather import mono_rows, monotone_gather
+    from goi_tpu_torch.raster.reduce import prefix_blocks, prefix_boundary
+    return {"gather": monotone_gather, "blend": blend_fwd,
+            "blend_bwd": blend_bwd, "prefix": prefix_blocks,
+            "trace": trace_fwd, "prefix_boundary": prefix_boundary,
+            "mono_rows": mono_rows}
+
+
+def reset_counts():
+    for k in kernel_wrappers().values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: k.launches for name, k in kernel_wrappers().items()}
+
+
+def timed_ms(fn):
+    """(fn(), device ms of that one call)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def check_trace(feat, starts, ends, aug, grid_x, label):
+    """The trace kernel against its plain version on one call's inputs:
+    the render sums within TOL, hit counts exactly, lifted rows within
+    TOL_TRACE; the plain version is timed on its one checking run."""
+    import torch
+    from goi_tpu_torch.raster.cuda_trace import trace_fwd, trace_fwd_plain
+    raw, rows = trace_fwd(feat, starts, ends, aug, grid_x)
+    torch.cuda.synchronize()
+    (ref_raw, ref_rows), plain_ms = timed_ms(
+        lambda: trace_fwd_plain(feat, starts, ends, aug, grid_x))
+    n_out = feat.shape[0] - 6
+    a, b = raw[..., :n_out + 1], ref_raw[..., :n_out + 1]
+    err_raw = float((a - b).abs().max())
+    if not torch.isfinite(a).all() or not torch.allclose(a, b, rtol=TOL,
+                                                         atol=TOL):
+        raise AssertionError(f"trace {label}: render max |kernel - plain| "
+                             f"{err_raw}")
+    hit_diff = int((rows[:, -1] != ref_rows[:, -1]).sum())
+    if hit_diff:
+        raise AssertionError(f"trace {label}: {hit_diff} instances' hit "
+                             f"counts differ from the plain version's")
+    ok, err_rows = close_to_peak(rows, ref_rows, *TOL_TRACE)
+    if not ok:
+        raise AssertionError(f"trace {label}: rows max |kernel - plain| "
+                             f"{err_rows}")
+    count_diff = int((raw[..., n_out + 1:] != ref_raw[..., n_out + 1:])
+                     .sum())
+    walked = float(raw[..., n_out + 1].double().sum())
+    blended = float(raw[..., n_out + 2].double().sum())
+    hits = float(rows[:, -1].double().sum())
+    sa = aug.shape[-1]
+    ms = median_ms(lambda: trace_fwd(feat, starts, ends, aug, grid_x))
+    nbytes = 4 * (feat.numel() + starts.numel() + ends.numel() + aug.numel()
+                  + raw.numel() + rows.numel())
+    ops = (OPS_WALKED * walked + (OPS_BLENDED_BASE + 2 * n_out) * blended
+           + sa * hits)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FP32_PER_S * 1e3
+    log(f"[kernels] trace {label}: tiles={starts.numel()} M={feat.shape[1]} "
+        f"lifted={sa}; render max_err={err_raw:.3e} (tol {TOL}), rows "
+        f"max_err={err_rows:.3e} (tol rtol {TOL_TRACE[0]} + {TOL_TRACE[1]} x "
+        f"peak), hit counts equal, walked/blended count mismatches="
+        f"{count_diff}; pairs walked={walked:.0f} blended={blended:.0f} "
+        f"hits={hits:.0f}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+        f"operations {ops_ms:.4f})")
+    return dict(max_abs_err=max(err_raw, err_rows), ms=ms,
+                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None)
+
+
+def check_prefix_boundary(rows, p, blk, label):
+    """The fused kernel against the prefix kernel's read-out (bit for
+    bit) and its plain version, and the two whole reduces on the same
+    stream, timed."""
+    import torch
+    from goi_tpu_torch.raster.reduce import (blocked_segment_reduce,
+                                             dense_boundary_reduce,
+                                             prefix_blocks, prefix_boundary,
+                                             prefix_boundary_plain)
+    lb, tot = prefix_boundary(rows, p, blk)
+    inner, tot_u = prefix_blocks(rows, None, blk)
+    fused = dense_boundary_reduce(rows, p)
+    unfused = blocked_segment_reduce(rows, p)
+    torch.cuda.synchronize()
+    if not (torch.equal(lb, inner[p]) and torch.equal(tot, tot_u)
+            and torch.equal(fused, unfused)):
+        raise AssertionError(f"prefix_boundary {label}: not bit-identical "
+                             f"to the prefix kernel's read-out")
+    del inner, tot_u, fused, unfused
+    ref_lb, ref_tot = prefix_boundary_plain(rows, p, blk)
+    ok_l, err_l = close_to_peak(lb, ref_lb, *TOL_PREFIX)
+    ok_t, err_t = close_to_peak(tot, ref_tot, TOL_PREFIX[0], TOL_PREFIX[1]
+                                * float(ref_lb.abs().max())
+                                / max(float(ref_tot.abs().max()), 1e-30))
+    err = max(err_l, err_t)
+    if not (ok_l and ok_t):
+        raise AssertionError(f"prefix_boundary {label}: max |kernel - "
+                             f"plain| {err}")
+    del ref_lb, ref_tot
+    m, d = rows.shape
+    ms = median_ms(lambda: prefix_boundary(rows, p, blk))
+    unfused_ms = median_ms(lambda: prefix_blocks(rows, None, blk)[0][p])
+    plain_ms = median_ms(lambda: prefix_boundary_plain(rows, p, blk))
+    fused_red_ms = median_ms(lambda: dense_boundary_reduce(rows, p))
+    unfused_red_ms = median_ms(lambda: blocked_segment_reduce(rows, p))
+    nbytes = 4 * (rows.numel() + lb.numel() + tot.numel()) + 8 * p.numel()
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = m * d / PEAK_FP32_PER_S * 1e3
+    log(f"[kernels] prefix_boundary {label}: rows=({m}, {d}) bounds="
+        f"{p.numel()} block={blk}: bit-identical to prefix's inner[p] and "
+        f"totals, max_err vs plain={err:.3e}; kernel {ms:.4f} ms (prefix + "
+        f"gather {unfused_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms (bytes); whole reduce: fused "
+        f"{fused_red_ms:.4f} ms, unfused {unfused_red_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None)
+
+
+def check_mono(table, idx):
+    import torch
+    from goi_tpu_torch.raster.gather import mono_rows, mono_rows_plain
+    out = mono_rows(table, idx)
+    ref = mono_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("mono_rows differs from its plain version")
+    zero_rows = int((~ref.any(dim=1)).sum())
+    ms = median_ms(lambda: mono_rows(table, idx))
+    plain_ms = median_ms(lambda: mono_rows_plain(table, idx))
+    lib_ms = median_ms(lambda: torch.index_select(table, 0, idx))
+    nbytes = 4 * (table.numel() + idx.numel() + out.numel())
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"[kernels] mono_rows n={table.shape[0]} C={table.shape[1]} "
+        f"m={idx.shape[0]}: bit-exact ({zero_rows} rows outside their "
+        f"window); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"index_select {lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+
+
+def trace_phase(scene, cams, cfg, stats):
+    """[trace]: 2D->3D lifting at full width through trace()."""
+    import dataclasses
+    import torch
+    from goi_tpu_torch.raster.render import (RasterConfig, render,
+                                             suggest_budgets, trace)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bg = torch.zeros(3, device="cuda")
+
+    # the kernel against its plain version on the 100k frame and one view
+    small = make_scene(100_000, seed=1, device="cuda")
+    small_cam = orbit_cams(512, 512, 1, "cuda")[0]
+    mi, _ = suggest_budgets(small, small_cam, margin=1.2)
+    simg = torch.randn((SEM_DIM, 512, 512), generator=gen, device="cuda")
+    seen = capture(lambda: trace(small, small_cam, simg, bg, RasterConfig(
+        max_instances=mi, reduce="chain")))
+    check_trace(*seen["trace"], label="100k 512x512")
+    del small, simg, seen
+    imgs = [torch.randn((SEM_DIM, HEIGHT, WIDTH), generator=gen,
+                        device="cuda") for _ in cams]
+    seen = capture(lambda: trace(scene, cams[0], imgs[0], bg, cfg))
+    stats["trace"] = check_trace(*seen["trace"],
+                                 label=f"1M {WIDTH}x{HEIGHT}")
+    del seen
+    trace(scene, cams[0], imgs[0], bg, cfg)      # warm-up, before the counts
+
+    reset_counts()
+    dense_cfg = dataclasses.replace(cfg, dense_reduce=True)
+    times, outs = [], []
+    for i in range(N_TRACES + 1):
+        v = i % N_VIEWS
+        t0 = time.perf_counter()
+        out = trace(scene, cams[v], imgs[v], bg,
+                    dense_cfg if i == N_TRACES else cfg)
+        torch.cuda.synchronize()
+        if i < N_TRACES:
+            times.append((time.perf_counter() - t0) * 1e3)
+        if i < N_VIEWS or i == N_TRACES:
+            outs.append(out)
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("trace", "gather", "prefix",
+                                       "prefix_boundary")}
+    if counts["blend"] or counts["blend_bwd"]:
+        raise AssertionError(f"trace ran a blend kernel: {counts}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+
+    # what came out, read after the counted run
+    n = scene.capacity
+    for v, out in enumerate(outs[:N_VIEWS]):
+        gsem, cnt = out["gaussian_semantics"], out["num_gsem"]
+        if gsem.shape != (n, SEM_DIM) or cnt.shape != (n,) \
+                or cnt.dtype != torch.int32:
+            raise AssertionError(f"trace shapes {tuple(gsem.shape)} "
+                                 f"{tuple(cnt.shape)} {cnt.dtype}")
+        if not torch.isfinite(gsem).all() or not torch.isfinite(
+                out["render"]).all():
+            raise AssertionError("non-finite trace output")
+        if bool((cnt % SEM_DIM != 0).any()) or int(cnt.sum()) <= 0:
+            raise AssertionError("num_gsem is not a positive multiple of S")
+        slots = int(out["num_slots"])
+        if slots > cfg.max_instances:
+            raise AssertionError(f"num_slots {slots} > {cfg.max_instances}")
+        with torch.no_grad():
+            ref = render(scene, cams[v], bg, cfg)["render"]
+        err = float((out["render"] - ref).abs().max())
+        if not torch.allclose(out["render"], ref, rtol=TOL_TRACE_RENDER,
+                              atol=TOL_TRACE_RENDER):
+            raise AssertionError(f"trace render vs render(): {err}")
+        log(f"[trace] view {v}: {int((cnt > 0).sum())} of {n} Gaussians hit, "
+            f"{int(cnt.sum()) // SEM_DIM} hits, num_slots={slots}, "
+            f"max_tile_depth={int(out['max_tile_depth'])}; render vs "
+            f"render() max diff {err:.3e} (tol {TOL_TRACE_RENDER})")
+    dense = outs[-1]
+    if not (torch.equal(dense["num_gsem"], outs[0]["num_gsem"]) and
+            torch.equal(dense["gaussian_semantics"],
+                        outs[0]["gaussian_semantics"])):
+        raise AssertionError("trace with dense_reduce differs from the chain")
+    del outs, dense
+    p50, p95 = np.percentile(times, [50, 95])
+    log(f"[trace] {N_TRACES} trace() calls at {WIDTH}x{HEIGHT}, 1M "
+        f"Gaussians, S_img={SEM_DIM}, reduce chain: p50 {p50:.1f} ms, p95 "
+        f"{p95:.1f} ms, max {max(times):.1f} ms; one more view with "
+        f"dense_reduce=True is bit-identical; launches {launches}")
+    profile(lambda: trace(scene, cams[0], imgs[0], bg, cfg), "trace call")
+
+    # a small scene's trace on the card against the CPU
+    tiny = make_scene(2000, seed=3, device="cpu")
+    img = torch.randn((SEM_DIM, 64, 96), generator=torch.Generator()
+                      .manual_seed(3))
+    small_cfg = RasterConfig(max_instances=1 << 15)
+    got, want = [{k: v.cpu() for k, v in trace(
+        tiny.to(dev), orbit_cams(96, 64, 1, dev, dist=4.0)[0], img.to(dev),
+        torch.ones(3, device=dev), small_cfg).items()}
+        for dev in ("cuda", "cpu")]
+    if not torch.equal(got["num_gsem"], want["num_gsem"]):
+        raise AssertionError("small trace: hit counts card vs CPU differ")
+    e = float((got["gaussian_semantics"] - want["gaussian_semantics"])
+              .abs().max())
+    if not torch.allclose(got["gaussian_semantics"],
+                          want["gaussian_semantics"], rtol=1e-4, atol=1e-4) \
+            or not torch.allclose(got["render"], want["render"], rtol=TOL,
+                                  atol=TOL):
+        raise AssertionError(f"small trace card vs CPU: {e}")
+    log(f"[trace] small scene: counts equal card vs CPU "
+        f"({int(want['num_gsem'].sum())}), features max diff {e:.2e}")
+    return launches
+
+
+def micro_phase(stats):
+    """[micro]: the micro-benchmark at its default sizes."""
+    import torch
+    from goi_tpu_torch.examples import micro_sortpayload as micro
+    x = micro.make_inputs(micro.DEFAULT_M, micro.DEFAULT_N, "cuda")
+    stats["mono_rows"] = check_mono(x["table"], x["gstream"])
+    del x
+    torch.cuda.synchronize()
+    reset_counts()
+    res = micro.run(iters=MICRO_ITERS)
+    n = read_counts()["mono_rows"]
+    log(f"[micro] {json.dumps(res)}")
+    if n <= 0:
+        raise AssertionError("the micro-benchmark did not launch mono_rows")
+    return {"mono_rows": n}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -576,9 +918,6 @@ def main() -> int:
 
     from goi_tpu_torch.app.session import QuerySession
     from goi_tpu_torch.data import scene as triplet
-    from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
-    from goi_tpu_torch.raster.gather import monotone_gather
-    from goi_tpu_torch.raster.reduce import prefix_blocks
     from goi_tpu_torch.raster.render import (RasterConfig, render,
                                              suggest_budgets)
     from goi_tpu_torch.semantic.codebook import SemanticDecoder
@@ -627,8 +966,7 @@ def main() -> int:
     sess.render_view(cams[0])           # warm-up, before the counts
     torch.cuda.synchronize()
 
-    for k in (monotone_gather, blend_fwd, blend_bwd, prefix_blocks):
-        k.launches = 0
+    reset_counts()
     frame_ms = []
     for i in range(N_FRAMES):
         cam = cams[i % N_VIEWS]
@@ -652,10 +990,10 @@ def main() -> int:
         log(f"[main] view: query frame {frame_ms[-1]:.1f} ms, "
             f"num_instances={int(out['num_instances'])} num_slots={slots}"
             f" <= {cfg.max_instances}, max_tile_depth={depth}")
-    launches = {"gather": monotone_gather.launches,
-                "blend": blend_fwd.launches}
-    if blend_bwd.launches or prefix_blocks.launches:
-        raise AssertionError("the query path ran a backward kernel")
+    counts = read_counts()
+    launches = {"gather": counts["gather"], "blend": counts["blend"]}
+    if any(n for k, n in counts.items() if k not in launches):
+        raise AssertionError(f"the query path ran another kernel: {counts}")
     p50, p95 = np.percentile(frame_ms, [50, 95])
     log(f"[main] {N_FRAMES} query frames + {N_VIEWS} renders at "
         f"{WIDTH}x{HEIGHT}: frame p50 {p50:.1f} ms, p95 {p95:.1f} ms, "
@@ -696,7 +1034,16 @@ def main() -> int:
     small_train_check()
     launches = {k: launches.get(k, 0) + n for k, n in train_launches.items()}
 
-    # ---- 6. kernels line, result ----
+    # ---- 6. main path: 2D->3D lifting ----
+    trace_launches = trace_phase(scene, cams, cfg, stats)
+    launches = {k: launches.get(k, 0) + trace_launches.get(k, 0)
+                for k in set(launches) | set(trace_launches)}
+    del scene
+
+    # ---- 7. the micro-benchmark ----
+    launches.update(micro_phase(stats))
+
+    # ---- 8. kernels line, result ----
     kernels = [
         dict(name="monotone_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",
@@ -714,7 +1061,22 @@ def main() -> int:
              source="goi_tpu_torch/raster/csrc/prefix.cu",
              replaces="goi_tpu/raster/pallas_blend.py:245",
              launches=launches["prefix"], **stats["prefix"]),
+        dict(name="trace", route="cuda",
+             source="goi_tpu_torch/raster/csrc/trace.cu",
+             replaces="goi_tpu/raster/pallas_blend.py:1106",
+             launches=launches["trace"], **stats["trace"]),
+        dict(name="prefix_boundary", route="cuda",
+             source="goi_tpu_torch/raster/csrc/prefix_boundary.cu",
+             replaces="goi_tpu/raster/pallas_blend.py:392",
+             launches=launches["prefix_boundary"],
+             **stats["prefix_boundary"]),
+        dict(name="mono_rows", route="cuda",
+             source="goi_tpu_torch/raster/csrc/mono_rows.cu",
+             replaces="examples/micro_sortpayload.py:85",
+             launches=launches["mono_rows"], **stats["mono_rows"]),
     ]
+    if min(k["launches"] for k in kernels) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

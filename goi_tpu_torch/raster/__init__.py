@@ -1,3 +1,3 @@
-from goi_tpu_torch.raster.render import RasterConfig, render
+from goi_tpu_torch.raster.render import RasterConfig, render, trace
 
-__all__ = ["render", "RasterConfig"]
+__all__ = ["render", "trace", "RasterConfig"]

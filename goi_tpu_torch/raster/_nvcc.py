@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on
 first use with nvcc into `build/goi_tpu_torch/lib<name>-<hash>.so` at
-the root of the checkout (the hash is of the source, so an edited source
-never loads a stale library), then loaded with ctypes. Wrappers pass
+the root of the checkout (the hash is of the source and the csrc
+headers, so an edited source never loads a stale library), then loaded
+with ctypes. Wrappers pass
 pointers from `tensor.data_ptr()` and PyTorch's current stream; every C
 entry point returns `cudaGetLastError()` and `check` raises on non-zero.
 """
@@ -49,7 +50,12 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    """The library's path, named by a hash of its source and of every
+    header in csrc (a source may include any of them)."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 
 

@@ -6,8 +6,11 @@ work (ref:cuda_rasterizer/config.h:16-17). `chunk_weights` is the math
 of one chunk of a tile's depth-ordered instances, vectorized over
 (tiles, pixels, chunk); the plain versions of the forward- and
 backward-blend kernels (raster/cuda_blend.py) compose it chunk by
-chunk. The XLA-backend `blend_tiles` (with its `tile_cap` truncation)
-is not ported: the port's blend walks each tile's exact range.
+chunk. The trace kernel's plain version (raster/cuda_trace.py) takes
+only its per-pair alpha (`pair_alpha`) and multiplies the
+transmittance itself, in the kernel's order. The XLA-backend
+`blend_tiles` (with its `tile_cap` truncation) is not ported: the
+port's blend walks each tile's exact range.
 """
 
 from __future__ import annotations
@@ -29,6 +32,23 @@ def _tile_pixel_coords(grid_x: int, grid_y: int, device=None):
     return xs.to(torch.float32), ys.to(torch.float32)
 
 
+def pair_alpha(mean2d, conic, opacity, m, xs, ys):
+    """Per pixel x instance alpha of one chunk (shapes as chunk_weights):
+    dx, dy (mean minus pixel), raw = opacity exp(power) (unclamped), the
+    clamped alpha and valid (in range, power <= 0, alpha >= 1/255), each
+    (T, P, k)."""
+    dx = mean2d[:, None, :, 0] - xs[:, :, None]        # (T, P, k)
+    dy = mean2d[:, None, :, 1] - ys[:, :, None]
+    ca = conic[:, None, :, 0]
+    cb = conic[:, None, :, 1]
+    cc = conic[:, None, :, 2]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    raw = opacity[:, None, :] * torch.exp(power)
+    alpha = torch.clamp(raw, max=ALPHA_CLAMP)
+    valid = m[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+    return dx, dy, raw, alpha, valid
+
+
 def chunk_weights(mean2d, conic, opacity, m, xs, ys, t_all):
     """Blend math of one chunk (ref:cuda_rasterizer/forward.cu:331-371).
 
@@ -44,15 +64,8 @@ def chunk_weights(mean2d, conic, opacity, m, xs, ys, t_all):
     pixel), raw = opacity exp(power) (unclamped), alpha, valid, q,
     p_incl (T after the instance), p_excl (T before it), active (valid
     and not stopped) and w = alpha T_before on active instances."""
-    dx = mean2d[:, None, :, 0] - xs[:, :, None]        # (T, P, k)
-    dy = mean2d[:, None, :, 1] - ys[:, :, None]
-    ca = conic[:, None, :, 0]
-    cb = conic[:, None, :, 1]
-    cc = conic[:, None, :, 2]
-    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    raw = opacity[:, None, :] * torch.exp(power)
-    alpha = torch.clamp(raw, max=ALPHA_CLAMP)
-    valid = m[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+    dx, dy, raw, alpha, valid = pair_alpha(mean2d, conic, opacity, m, xs,
+                                           ys)
     q = torch.where(valid, 1.0 - alpha, torch.ones_like(alpha))
     p_all = torch.cumprod(torch.cat([t_all[:, :, None], q], dim=-1), dim=-1)
     p_incl = p_all[..., 1:]

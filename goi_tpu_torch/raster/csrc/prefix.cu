@@ -13,21 +13,20 @@
 //
 // Bound on the H100: bytes. It reads the rows (and mask) once and writes
 // the prefixes and totals once, with one add per element. The design
-// serves that: a block of blk rows goes through shared memory,
-// column-major with a skew, so the loads and stores of device memory
-// are coalesced row-major and the scan reads are free of bank
-// conflicts. Warp w scans columns w, w + 8, ...: lane l sums its run of
-// blk / 32 consecutive rows, a shuffle scan over the 32 lanes gives each
-// run its offset, and the lane writes its run's exclusive prefix. The
-// order is fixed, so the result is the same on every run.
+// serves that: a block of blk rows goes through shared memory, skewed so
+// that the loads and stores of device memory are coalesced row-major and
+// the scan reads are free of bank conflicts (csrc/block_scan.cuh, shared
+// with csrc/prefix_boundary.cu). The order is fixed, so the result is
+// the same on every run.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "block_scan.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = goi_scan::THREADS;
 
 __global__ void __launch_bounds__(THREADS)
 prefix_kernel(const float* __restrict__ rows, const float* __restrict__ okf,
@@ -42,45 +41,14 @@ prefix_kernel(const float* __restrict__ rows, const float* __restrict__ okf,
     for (int e = tid; e < n; e += THREADS) out[e] = 0.f;
     return;
   }
-  const int run = blk / 32;
-  // column c, row r at c * stride + r + r / run: the skew makes both the
-  // row-major fill (neighbouring columns) and the scan (lanes run + 1
-  // apart) hit distinct banks
-  const int stride = blk + 33;
-  const float* in = rows + (long long)b * n;
+  goi_scan::exclusive_scan(
+      rows + (long long)b * n,
+      okf == nullptr ? nullptr : okf + (long long)b * blk, d, blk, sh,
+      tot + (long long)b * d);
   for (int e = tid; e < n; e += THREADS) {
     const int r = e / d;
     const int c = e - r * d;
-    float x = in[e];
-    if (okf != nullptr) x *= okf[(long long)b * blk + r];
-    sh[c * stride + r + r / run] = x;
-  }
-  __syncthreads();
-  const int lane = tid & 31;
-  for (int c = tid >> 5; c < d; c += THREADS / 32) {
-    float* col = sh + c * stride + lane * (run + 1);
-    float s = 0.f;
-    for (int i = 0; i < run; ++i) s += col[i];
-    float incl = s;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl += y;
-    }
-    float acc = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) acc = 0.f;
-    for (int i = 0; i < run; ++i) {
-      const float x = col[i];
-      col[i] = acc;
-      acc += x;
-    }
-    if (lane == 31) tot[(long long)b * d + c] = acc;
-  }
-  __syncthreads();
-  for (int e = tid; e < n; e += THREADS) {
-    const int r = e / d;
-    const int c = e - r * d;
-    out[e] = sh[c * stride + r + r / run];
+    out[e] = sh[goi_scan::slot(r, c, blk)];
   }
 }
 
@@ -94,7 +62,7 @@ extern "C" int goi_prefix_blocks(const void* rows, const void* okf, int d,
                                  void* stream) {
   if (blk <= 0 || blk % 32 != 0 || d <= 0 || nb < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)d * (size_t)(blk + 33);
+  const size_t smem = goi_scan::smem_bytes(d, blk);
   cudaError_t err = cudaFuncSetAttribute(
       prefix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -264,15 +264,17 @@ class _BlendCore(torch.autograd.Function):
     pallas_blend._blend_core's custom VJP). The backward runs the
     backward kernel and then the reduce named by `reduce`: 'chain'
     (with the binning's `sort_slots` and the Gaussians' `tiles_touched`)
-    or 'scatter' (by the sorted Gaussian ids)."""
+    or 'scatter' (by the sorted Gaussian ids); `dense` fuses the chain's
+    prefix and boundary read-out (reduce.dense_boundary_reduce)."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, color, semantics, depth, gid,
-                starts, ends, grid_x, reduce, sort_slots, tiles_touched):
+                starts, ends, grid_x, reduce, dense, sort_slots,
+                tiles_touched):
         feat = _pack_impl(mean2d, conic, opacity, color, semantics, depth,
                           gid)
         raw = blend_fwd(feat, starts, ends, grid_x)
-        ctx.grid_x, ctx.reduce = grid_x, reduce
+        ctx.grid_x, ctx.reduce, ctx.dense = grid_x, reduce, dense
         ctx.n_gauss, ctx.s_dim = mean2d.shape[0], semantics.shape[-1]
         ctx.save_for_backward(feat, starts, ends, raw, gid, sort_slots,
                               tiles_touched)
@@ -285,36 +287,43 @@ class _BlendCore(torch.autograd.Function):
         rows = blend_bwd(feat, starts, ends, raw, grad_raw, ctx.grid_x)
         if ctx.reduce == "chain":
             acc = reduce_chain(rows, sort_slots,
-                               _chain_bounds(tiles_touched, rows.shape[0]))
+                               _chain_bounds(tiles_touched, rows.shape[0]),
+                               dense=ctx.dense)
         else:
             acc = reduce_scatter(rows, gid, ctx.n_gauss)
         s = ctx.s_dim
         return (acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:9],
                 acc[:, 9:9 + s], acc[:, 9 + s],
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def blend_tiles_cuda(sp: Splats, binning: Binning, bg: torch.Tensor, *,
-                     grid_x: int, reduce: str):
+                     grid_x: int, reduce: str, dense: bool = False):
     """Per-tile images: color (T,256,3), semantics (T,256,S),
     depth (T,256), alpha (T,256). `reduce` ('scatter' | 'chain', already
     resolved) picks the backward's instance -> Gaussian reduction;
-    'chain' needs a binning made with export_perm=True."""
+    'chain' needs a binning made with export_perm=True, and `dense`
+    (chain only) fuses its prefix and boundary read-out."""
     if reduce not in ("scatter", "chain"):
         raise ValueError(f"unknown reduce {reduce!r} (resolve 'auto' "
                          f"before calling blend_tiles_cuda)")
+    if dense and reduce != "chain":
+        raise ValueError("dense needs reduce='chain'")
     if reduce == "chain" and binning.sort_slots is None:
         raise ValueError("reduce='chain' needs bin_splats_chunked("
                          "..., export_perm=True)")
     s = sp.semantics.shape[-1]
-    n_out = 3 + s + 1
     raw = _BlendCore.apply(sp.mean2d, sp.conic, sp.opacity, sp.color,
                            sp.semantics, sp.depth, binning.point_list,
                            binning.tile_start, binning.tile_end, grid_x,
-                           reduce, binning.sort_slots,
+                           reduce, dense, binning.sort_slots,
                            sp.tiles_touched)
-    t_final = raw[:, :, n_out]
+    return composite(raw, bg, s)
+
+
+def composite(raw: torch.Tensor, bg: torch.Tensor, s: int):
+    """Raw blend output (T, 256, 4 + S + 3) -> color with the background
+    (T,256,3), semantics (T,256,S), depth (T,256), alpha (T,256)."""
+    t_final = raw[:, :, 4 + s]
     color = raw[:, :, :3] + t_final[:, :, None] * bg[None, None, :]
-    sem = raw[:, :, 3:3 + s]
-    depth = raw[:, :, 3 + s]
-    return color, sem, depth, 1.0 - t_final
+    return color, raw[:, :, 3:3 + s], raw[:, :, 3 + s], 1.0 - t_final

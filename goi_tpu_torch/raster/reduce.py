@@ -22,6 +22,11 @@ indexed by (tile, chunk)) do not carry over: the port's rows are indexed
 by sorted position, and rows past the kept instances are zero, so the
 reduces pass no mask to the prefix (the kernel still takes one, as the
 TPU kernel did).
+
+`dense_boundary_reduce` (`RasterConfig.dense_reduce`, the counterpart of
+`_dense_boundary_reduce`) gives blocked_segment_reduce's bits with the
+prefix and its read-out at the bounds fused into csrc/prefix_boundary.cu
+(`prefix_boundary`; `prefix_boundary_plain` on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ SUB = 128            # smallest block; other sizes are padded to it
 _SIGNATURES = {"goi_prefix_blocks": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]}
+_BOUNDARY_SIGNATURES = {"goi_prefix_boundary": [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p]}
 
 
 def prefix_blocks_plain(rows: torch.Tensor, okf: Optional[torch.Tensor],
@@ -114,6 +123,59 @@ def _block_owner_sums(tot: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(x[last]))
 
 
+def prefix_boundary_plain(rows: torch.Tensor, p: torch.Tensor, blk: int):
+    """Plain version of the kernel: (the block-local exclusive prefix at
+    each row p[g], zero at the stream's end nb * blk (n + 1, d), block
+    totals (nb, d))."""
+    inner, tot = prefix_blocks_plain(rows, None, blk)
+    return inner[p.long()], tot
+
+
+def prefix_boundary(rows: torch.Tensor, p: torch.Tensor,
+                    blk: int = CUMSUM_BLOCK):
+    """rows (nb * blk, d) float32, p (n + 1,) int64 non-decreasing in
+    [0, nb * blk] -> (lb (n + 1, d) = prefix_blocks(rows)[0][p], block
+    totals (nb, d)), without writing the full prefix."""
+    if rows.dim() != 2 or rows.shape[0] % blk or blk % 32:
+        raise ValueError(f"rows (nb * {blk}, d) with blk a multiple of 32 "
+                         f"expected, got {tuple(rows.shape)}")
+    if p.dim() != 1:
+        raise ValueError(f"p (n + 1,) expected, got {tuple(p.shape)}")
+    if not _nvcc.is_cuda(rows):
+        return prefix_boundary_plain(rows, p, blk)
+    if rows.dtype != torch.float32 or p.dtype != torch.int64:
+        raise TypeError("float32 rows and int64 p expected")
+    if p.device != rows.device:
+        raise ValueError("rows and p must be on the same CUDA device")
+    lib = _nvcc.library("prefix_boundary", _BOUNDARY_SIGNATURES)
+    rows = rows.contiguous()
+    p = p.contiguous()
+    m, d = rows.shape
+    nb = m // blk
+    lb = torch.empty((p.shape[0], d), dtype=torch.float32,
+                     device=rows.device)
+    tot = torch.empty((nb, d), dtype=torch.float32, device=rows.device)
+    _nvcc.check(lib.goi_prefix_boundary(
+        rows.data_ptr(), d, nb, blk, p.data_ptr(), p.shape[0], lb.data_ptr(),
+        tot.data_ptr(), _nvcc.stream()), "prefix_boundary")
+    prefix_boundary.launches += 1
+    return lb, tot
+
+
+prefix_boundary.launches = 0
+
+
+def _blocked(rows: torch.Tensor, bounds: torch.Tensor):
+    """rows padded to a whole number of blocks, the block size, and the
+    bounds clamped to the unpadded length m."""
+    m = rows.shape[0]
+    blk = next(b for b in (CUMSUM_BLOCK, 256, SUB) if m % b == 0
+               or b == SUB)
+    if m % blk:
+        rows = torch.nn.functional.pad(rows, (0, 0, 0, -m % blk))
+    return rows, blk, torch.clamp(bounds.long(), max=m)
+
+
 def blocked_segment_reduce(rows: torch.Tensor, bounds: torch.Tensor):
     """Per-segment sums of Gaussian-major rows with block-local error.
 
@@ -125,24 +187,33 @@ def blocked_segment_reduce(rows: torch.Tensor, bounds: torch.Tensor):
     where L is the block-local exclusive prefix and tot the block totals
     (B rows a block): no quantity of the stream's global magnitude is
     ever formed (PARITY.md deviation 9)."""
-    m, d = rows.shape
-    blk = next(b for b in (CUMSUM_BLOCK, 256, SUB) if m % b == 0
-               or b == SUB)
-    if m % blk:
-        rows = torch.nn.functional.pad(rows, (0, 0, 0, -m % blk))
+    rows, blk, p = _blocked(rows, bounds)
     inner, tot = prefix_blocks(rows, None, blk)
-    p = torch.clamp(bounds.long(), max=m)
     lb = inner[p]
     return lb[1:] - lb[:-1] + _block_owner_sums(tot, p // blk)
 
 
+def dense_boundary_reduce(rows: torch.Tensor, bounds: torch.Tensor):
+    """blocked_segment_reduce with the prefix and the read-out of L at
+    the bounds fused into one kernel (csrc/prefix_boundary.cu): the
+    same values, bit for bit, without the (m, d) prefix round trip.
+    Bounds may repeat (the chain's clamp under a budget overflow)."""
+    rows, blk, p = _blocked(rows, bounds)
+    lb, tot = prefix_boundary(rows, p, blk)
+    return lb[1:] - lb[:-1] + _block_owner_sums(tot, p // blk)
+
+
 def reduce_chain(rows: torch.Tensor, sort_slots: torch.Tensor,
-                 bounds: torch.Tensor) -> torch.Tensor:
+                 bounds: torch.Tensor, dense: bool = False) -> torch.Tensor:
     """rows (m, d) by sorted position -> (n, d) per-Gaussian sums:
     scattered into expansion order by the sort permutation (each
-    destination written once), then summed over bounds."""
+    destination written once), then summed over bounds
+    (dense_boundary_reduce if `dense`, else blocked_segment_reduce: the
+    same bits)."""
     stream = torch.empty_like(rows)
     stream[sort_slots.long()] = rows
+    if dense:
+        return dense_boundary_reduce(stream, bounds)
     return blocked_segment_reduce(stream, bounds)
 
 

@@ -8,8 +8,10 @@ CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
 `render` is differentiable: torch autograd through preprocess (as the
 JAX package uses JAX autodiff there, PARITY.md N5), binning under
 no_grad, and the blend's own backward (raster/cuda_blend.py) with the
-reduce that `_effective_reduce` picks. `trace()`, `render_batch` and the
-aligned layout are not ported yet.
+reduce that `_effective_reduce` picks. `trace` lifts a 2D feature map
+onto the Gaussians through the fused blend + lift kernel
+(raster/cuda_trace.py), forward only. `render_batch` and the aligned
+layout are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from goi_tpu_torch.core.scene import GaussianScene
 from goi_tpu_torch.raster.binning import bin_splats_chunked
 from goi_tpu_torch.raster.blend import tiles_to_image
 from goi_tpu_torch.raster.cuda_blend import K as BLEND_K
-from goi_tpu_torch.raster.cuda_blend import blend_tiles_cuda
+from goi_tpu_torch.raster.cuda_blend import (_chain_bounds, _pack_impl,
+                                             blend_tiles_cuda, composite)
+from goi_tpu_torch.raster.cuda_trace import trace_fwd, trace_fwd_plain
+from goi_tpu_torch.raster.reduce import reduce_chain, reduce_scatter
 from goi_tpu_torch.raster.preprocess import TILE, preprocess
 
 
@@ -43,6 +48,11 @@ class RasterConfig:
         ('chain' also makes the binning export its sort permutation).
     cull: exact ellipse/tile overlap cull in binning (output-exact).
     layout: 'chunked' only; 'aligned' is not ported yet.
+    dense_reduce: fuse the 'chain' reduce's block prefix and its read-out
+        at the segment bounds into one kernel (csrc/prefix_boundary.cu;
+        the same bits, less memory traffic). Off by default, as the JAX
+        package's GOI_DENSE_REDUCE; valid with the 'chain' reduce only.
+        It applies to render's backward and to trace's lift.
     """
 
     max_instances: int = 1 << 20
@@ -50,6 +60,7 @@ class RasterConfig:
     reduce: str = "auto"
     cull: bool = True
     layout: str = "chunked"
+    dense_reduce: bool = False
 
 
 def _grid(cam: Camera):
@@ -63,11 +74,17 @@ AUTO_CUMSUM_MIN = 1 << 19
 
 def _effective_reduce(config: RasterConfig) -> str:
     """Resolve reduce='auto' against the static budget, as the JAX
-    package does for its chunked layout."""
+    package does for its chunked layout; dense_reduce needs it to
+    resolve to 'chain'."""
     if config.reduce in ("scatter", "chain"):
-        return config.reduce
-    return ("chain" if config.max_instances >= AUTO_CUMSUM_MIN
-            else "scatter")
+        reduce = config.reduce
+    else:
+        reduce = ("chain" if config.max_instances >= AUTO_CUMSUM_MIN
+                  else "scatter")
+    if config.dense_reduce and reduce != "chain":
+        raise ValueError(f"dense_reduce=True needs the 'chain' reduce; "
+                         f"reduce={config.reduce!r} resolves to {reduce!r}")
+    return reduce
 
 
 def _assemble_out(tiles, sp, binning, cam: Camera, grid_x: int,
@@ -148,15 +165,7 @@ def render(scene: GaussianScene, cam: Camera, bg_color,
                                 override_color=override_color,
                                 semantic_masks=semantic_masks,
                                 mean2d_offset=mean2d_offset)
-    if config.backend != "cuda":
-        raise ValueError(f"unknown backend {config.backend!r}")
-    if config.reduce not in ("auto", "scatter", "chain"):
-        raise ValueError(f"unknown reduce {config.reduce!r}")
-    if config.layout == "aligned":
-        raise NotImplementedError("layout='aligned' is not ported yet")
-    if config.layout != "chunked":
-        raise ValueError(f"unknown layout {config.layout!r}")
-
+    _check_config(config)
     grid_x, grid_y = _grid(cam)
     sp = preprocess(scene, cam, scaling_modifier=scaling_modifier,
                     override_color=override_color,
@@ -165,11 +174,88 @@ def render(scene: GaussianScene, cam: Camera, bg_color,
         sp = dataclasses.replace(sp, mean2d=sp.mean2d + mean2d_offset)
     reduce = _effective_reduce(config)
     with torch.no_grad():   # integer stages: nothing to differentiate
-        binning = bin_splats_chunked(
-            sp, grid_x=grid_x, grid_y=grid_y,
-            max_instances=config.max_instances, chunk_k=BLEND_K,
-            cull=config.cull, export_perm=(reduce == "chain"))
+        binning = _bin(sp, config, grid_x, grid_y, reduce)
     bg = torch.as_tensor(bg_color, dtype=torch.float32,
                          device=scene.xyz.device)
-    tiles = blend_tiles_cuda(sp, binning, bg, grid_x=grid_x, reduce=reduce)
+    tiles = blend_tiles_cuda(sp, binning, bg, grid_x=grid_x, reduce=reduce,
+                             dense=config.dense_reduce)
     return _assemble_out(tiles, sp, binning, cam, grid_x, grid_y)
+
+
+def _check_config(config: RasterConfig) -> None:
+    if config.backend not in ("cuda", "reference"):
+        raise ValueError(f"unknown backend {config.backend!r}")
+    if config.reduce not in ("auto", "scatter", "chain"):
+        raise ValueError(f"unknown reduce {config.reduce!r}")
+    if config.layout == "aligned":
+        raise NotImplementedError("layout='aligned' is not ported yet")
+    if config.layout != "chunked":
+        raise ValueError(f"unknown layout {config.layout!r}")
+
+
+def _bin(sp, config: RasterConfig, grid_x: int, grid_y: int, reduce: str):
+    return bin_splats_chunked(
+        sp, grid_x=grid_x, grid_y=grid_y,
+        max_instances=config.max_instances, chunk_k=BLEND_K,
+        cull=config.cull, export_perm=(reduce == "chain"))
+
+
+def trace(scene: GaussianScene, cam: Camera, img_sem: torch.Tensor,
+          bg_color, config: RasterConfig = RasterConfig(), *,
+          scaling_modifier: float = 1.0,
+          override_color: Optional[torch.Tensor] = None):
+    """2D->3D feature lifting (ref:cuda_rasterizer/forward.cu:422-583,
+    gaussian_renderer/__init__.py:107-192): walks the blend order and,
+    for every blended instance with alpha > 0.005, adds the pixel's
+    image feature to that Gaussian.
+
+    img_sem: (S, H, W) per-pixel features to lift. Returns dict(render,
+    gaussian_semantics (N, S), num_gsem (N,) int32, max_tile_depth,
+    num_slots). num_gsem counts one hit per channel (hits * S), the
+    reference's quirk (ref:forward.cu:521-526, PARITY.md N6). One
+    preprocess and one binning serve the lift and the embedded render;
+    the rows sum per Gaussian with the reduce that `_effective_reduce`
+    picks (deterministic; hit counts travel as float32, exact below
+    2^24). backend='reference' runs the kernel's plain version on any
+    device. Forward only: runs under no_grad."""
+    _check_config(config)
+    s = img_sem.shape[0]
+    if tuple(img_sem.shape[1:]) != (cam.height, cam.width):
+        raise ValueError(f"img_sem (S, {cam.height}, {cam.width}) expected, "
+                         f"got {tuple(img_sem.shape)}")
+    reduce = _effective_reduce(config)
+    fwd = trace_fwd_plain if config.backend == "reference" else trace_fwd
+    grid_x, grid_y = _grid(cam)
+    with torch.no_grad():
+        sp = preprocess(scene, cam, scaling_modifier=scaling_modifier,
+                        override_color=override_color)
+        binning = _bin(sp, config, grid_x, grid_y, reduce)
+        dev = scene.xyz.device
+        # the ones channel counts hits; image_to_tiles zero-pads both it
+        # and the features outside the image
+        aug = torch.cat([img_sem.to(device=dev, dtype=torch.float32),
+                         torch.ones((1, cam.height, cam.width),
+                                    device=dev)])
+        feat = _pack_impl(sp.mean2d, sp.conic, sp.opacity, sp.color,
+                          sp.semantics, sp.depth, binning.point_list)
+        raw, rows = fwd(feat, binning.tile_start, binning.tile_end,
+                        image_to_tiles(aug, grid_x, grid_y), grid_x)
+        if reduce == "chain":
+            lifted = reduce_chain(
+                rows, binning.sort_slots,
+                _chain_bounds(sp.tiles_touched, rows.shape[0]),
+                dense=config.dense_reduce)
+        else:
+            lifted = reduce_scatter(rows, binning.point_list,
+                                    sp.mean2d.shape[0])
+        bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+        tiles = composite(raw, bg, sp.semantics.shape[-1])
+        out = _assemble_out(tiles, sp, binning, cam, grid_x, grid_y)
+    return {
+        "render": out["render"],
+        "gaussian_semantics": lifted[:, :s],
+        "num_gsem": lifted[:, s].to(torch.int32) * s,
+        # informational: the walk has no per-tile cap
+        "max_tile_depth": out["max_tile_depth"],
+        "num_slots": binning.num_slots,
+    }

@@ -11,7 +11,11 @@ bar); the backward rtol 2e-3 / atol 2e-4 (its gradient bar: the suffix
 R_i = total - prefix_i cancels, and the plain version's CUDA cumsum and
 cumprod associate differently from the kernel's sequential walk); the
 block prefix rtol 1e-4 with atol 1e-5 of the rows' magnitude (an fp32
-scan of up to 512 rows in another order).
+scan of up to 512 rows in another order); the trace kernel's render at
+the forward's 5e-5, its hit counts and the plain version's exactly (both
+multiply the transmittance in the same order), its lifted features at
+tests/test_trace.py's 1e-4 (sums of up to 256 pixels in another order);
+the fused prefix-boundary reduce and the mono row gather bit for bit.
 """
 
 import numpy as np
@@ -22,11 +26,13 @@ from goi_tpu_torch.core.camera import Camera
 from goi_tpu_torch.core.scene import GaussianScene
 from goi_tpu_torch.raster import cuda_blend
 from goi_tpu_torch.raster import reduce as R
+from goi_tpu_torch.raster import cuda_trace
 from goi_tpu_torch.raster.binning import bin_splats_chunked
-from goi_tpu_torch.raster.gather import monotone_gather, \
-    monotone_gather_plain
+from goi_tpu_torch.raster.gather import (mono_rows, mono_rows_plain,
+                                         monotone_gather,
+                                         monotone_gather_plain)
 from goi_tpu_torch.raster.preprocess import preprocess
-from goi_tpu_torch.raster.render import RasterConfig, render
+from goi_tpu_torch.raster.render import RasterConfig, render, trace
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
 from goi_tpu_torch.train.distill import create_distill_state, distill_loss
 from goi_tpu_torch.train.optim import OptimConfig
@@ -228,3 +234,102 @@ def test_train_step_on_card_matches_cpu(cuda):
                         "opacity", "lut"}
     for k in g_g:
         _close_to_peak(g_g[k], g_c[k], k)
+
+
+@pytest.mark.parametrize("sem_dim,s_img", [
+    (s, 10) for s in cuda_blend.SEM_DIMS] + [(10, 0), (10, 3), (16, 31)])
+def test_trace_kernel_matches_plain(cuda, sem_dim, s_img):
+    feat, b = _packed(sem_dim, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(s_img)
+    aug = torch.randn((80, 256, s_img + 1), generator=gen, device=cuda)
+    aug[..., -1] = 1.0
+    aug[70:] = 0.0          # tiles outside the image lift nothing
+    before = cuda_trace.trace_fwd.launches
+    raw, rows = cuda_trace.trace_fwd(feat, b.tile_start, b.tile_end, aug, 10)
+    torch.cuda.synchronize()
+    assert cuda_trace.trace_fwd.launches == before + 1
+    want_raw, want_rows = cuda_trace.trace_fwd_plain(
+        feat, b.tile_start, b.tile_end, aug, 10)
+    n = 4 + sem_dim + 1
+    torch.testing.assert_close(raw[..., :n], want_raw[..., :n], rtol=5e-5,
+                               atol=5e-5)
+    assert torch.equal(raw[..., n:], want_raw[..., n:])
+    assert torch.equal(rows[:, -1], want_rows[:, -1])
+    torch.testing.assert_close(rows, want_rows, rtol=1e-4, atol=1e-4)
+    assert rows[:, -1].sum() > 0
+    # the embedded render is the forward blend's, bit for bit
+    assert torch.equal(raw, cuda_blend.blend_fwd(feat, b.tile_start,
+                                                 b.tile_end, 10))
+
+
+def test_trace_on_card_matches_cpu(cuda):
+    scene = _scene(3000, 10, 7, cuda)
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn((10, 120, 160), generator=gen)
+    bg = torch.ones(3)
+    results = []
+    for dev, cfg in ((cuda, RasterConfig(max_instances=1 << 16)),
+                     (cuda, RasterConfig(max_instances=1 << 19,
+                                         dense_reduce=True)),
+                     ("cpu", RasterConfig(max_instances=1 << 16))):
+        out = trace(scene.to(dev), _cam(dev), img.to(dev), bg.to(dev), cfg)
+        results.append({k: v.cpu() for k, v in out.items()})
+    want = results[-1]
+    for got in results[:2]:
+        assert torch.equal(got["num_gsem"], want["num_gsem"])
+        torch.testing.assert_close(got["gaussian_semantics"],
+                                   want["gaussian_semantics"], rtol=1e-4,
+                                   atol=1e-4)
+        torch.testing.assert_close(got["render"], want["render"], rtol=5e-5,
+                                   atol=5e-5)
+    assert int(want["num_gsem"].sum()) > 0
+
+
+@pytest.mark.parametrize("m,d,repeat", [
+    (9 * 512, 20, False), (3000, 11, True), (5 * 512, 70, True)])
+def test_prefix_boundary_kernel_bit_identical(cuda, m, d, repeat):
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    rows = torch.randn((m, d), generator=gen, device=cuda) * 10
+    sizes = torch.randint(0, 9, (m // 3,), generator=gen, device=cuda)
+    bounds = torch.cat([torch.zeros(1, dtype=torch.long, device=cuda),
+                        torch.cumsum(sizes, 0)])
+    if repeat:   # _chain_bounds under an overflow: m - 1 repeated, then m
+        bounds = torch.cat([torch.clamp(bounds, max=m - 1),
+                            torch.full((1,), m, device=cuda)])
+    before = R.prefix_boundary.launches
+    got = R.dense_boundary_reduce(rows, bounds)
+    torch.cuda.synchronize()
+    assert R.prefix_boundary.launches == before + 1
+    assert torch.equal(got, R.blocked_segment_reduce(rows, bounds))
+    want = R.dense_boundary_reduce(rows.cpu(), bounds.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
+
+
+def test_dense_reduce_grads_on_card_bit_identical(cuda):
+    scene = _scene(3000, 10, 7, cuda)
+    cfg = RasterConfig(max_instances=1 << 16, reduce="chain")
+    bg = torch.zeros(3, device=cuda)
+    off = _render_grads(scene, _cam(cuda), cfg, bg)
+    before = R.prefix_boundary.launches
+    on = _render_grads(scene, _cam(cuda), RasterConfig(
+        max_instances=1 << 16, reduce="chain", dense_reduce=True), bg)
+    assert R.prefix_boundary.launches == before + 1
+    for k in off:
+        assert torch.equal(on[k], off[k]), k
+
+
+@pytest.mark.parametrize("n,m,blk,span", [
+    (1_000_000, 1 << 20, 1024, 2048), (5000, 4000, 8, 16)])
+def test_mono_rows_kernel_bit_exact(cuda, n, m, blk, span):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    table = torch.randn((n, 24), generator=gen, device=cuda)
+    idx = torch.sort(torch.randint(0, n, (m,), generator=gen, device=cuda,
+                                   dtype=torch.int32)).values
+    before = mono_rows.launches
+    got = mono_rows(table, idx, blk, span)
+    torch.cuda.synchronize()
+    assert mono_rows.launches == before + 1
+    want = mono_rows_plain(table, idx, blk, span)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    zero = ~want.any(dim=1)
+    assert bool(zero.any()) == (blk == 8)

@@ -1,6 +1,8 @@
 """The port stands alone: no file of goi_tpu_torch/ nor chip_smoke.py
 imports jax or the JAX package, and a kernel wrapper handed a CUDA
-tensor launches its kernel or raises (never a silent plain fallback)."""
+tensor launches its kernel or raises (never a silent plain fallback).
+The guards walk every module of the package, so new modules are covered
+when they are added."""
 
 import ast
 from pathlib import Path
@@ -8,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from goi_tpu_torch.raster import _nvcc, cuda_blend, gather, reduce
+from goi_tpu_torch.raster import _nvcc, cuda_blend, cuda_trace, gather, reduce
 
 torch.set_num_threads(1)
 
@@ -103,6 +105,40 @@ def test_prefix_wrapper_raises_without_library(no_library):
     assert reduce.prefix_blocks.launches == before
 
 
+def test_trace_wrapper_raises_without_library(no_library):
+    before = cuda_trace.trace_fwd.launches
+    feat = torch.zeros(20, 16)
+    se = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_trace.trace_fwd(feat, se, se + 16, torch.zeros(1, 256, 11), 1)
+    with pytest.raises(ValueError, match="sem_dim"):
+        cuda_trace.trace_fwd(torch.zeros(21, 16), se, se + 16,
+                             torch.zeros(1, 256, 11), 1)
+    with pytest.raises(ValueError, match="0..31"):
+        cuda_trace.trace_fwd(feat, se, se + 16, torch.zeros(1, 256, 33), 1)
+    assert cuda_trace.trace_fwd.launches == before
+
+
+def test_prefix_boundary_wrapper_raises_without_library(no_library):
+    before = reduce.prefix_boundary.launches
+    p = torch.tensor([0, 3, 512], dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        reduce.prefix_boundary(torch.zeros(512, 4), p)
+    with pytest.raises(TypeError):
+        reduce.prefix_boundary(torch.zeros(512, 4), p.int())
+    assert reduce.prefix_boundary.launches == before
+
+
+def test_mono_rows_wrapper_raises_without_library(no_library):
+    before = gather.mono_rows.launches
+    idx = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gather.mono_rows(torch.ones(8, 3), idx)
+    with pytest.raises(TypeError):
+        gather.mono_rows(torch.ones(8, 3), idx.long())
+    with pytest.raises(ValueError):
+        gather.mono_rows(torch.ones(8), idx)
+    assert gather.mono_rows.launches == before
 
 
 def _atomic_float_sums(path: Path):
