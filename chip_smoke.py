@@ -11,20 +11,23 @@ exits non-zero without the final result line:
 2. build: compile every CUDA kernel of goi_tpu_torch/raster/csrc (one
    nvcc per source, all at once);
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card, on the inputs the main paths give it, with times: the
-   expansion gather bit-exact; the forward blend within atol = rtol =
-   5e-5 on a 100k-Gaussian 512x512 frame and on the full frame; the
-   blend backward and the block prefix on that 100k frame's backward
-   here and on a full-width training step's in phase 5 (tolerances at
-   TOL_BWD and TOL_PREFIX);
+   card, on the inputs the main paths give it, with times: the fused
+   expansion gather (slot -> Gaussian search + gather) bit-exact against
+   scatter + cummax + gather, beside torch.index_select on the same
+   (table, g_stream), and monotone_gather bit-exact on that stream; the
+   forward blend within atol = rtol = 5e-5 on a 100k-Gaussian 512x512
+   frame and on the full frame; the blend backward and the block prefix
+   on that 100k frame's backward here and on a full-width training
+   step's in phase 5 (tolerances at TOL_BWD and TOL_PREFIX);
 4. [main] the query path: a seeded 1,000,000-Gaussian scene (SH degree
    3, 10 semantic channels), a 10->300 decoder and a 300x256 LUT, saved
    as the PLY + pickle + LUT.npy triplet and loaded back; QuerySession
    answers 12 open-vocabulary query frames at 1296x968 over 3 orbit
    views, plus one render() per view; the forward kernels' launch
    counts must be > 0; one more frame runs under torch.profiler
-   (device busy share, top kernels); a small scene is checked against
-   the oracle and the CPU path;
+   (device busy share, top kernels; every profiled run fails if the
+   plain expansion's cummax or scatter ran); a small scene is checked
+   against the oracle and the CPU path;
 5. [train] the distillation path on the same scene: 3 cameras at
    1296x968, seeded 256-dim feature maps, init_codebook to 300 codes,
    then N_STEPS train_steps with the reduce resolved to 'chain'; the
@@ -176,7 +179,7 @@ def capture(run):
     from goi_tpu_torch.raster import binning, cuda_blend, reduce
     # the module (the package re-exports its function `render`)
     render_mod = importlib.import_module("goi_tpu_torch.raster.render")
-    sites = {"gather": (binning, "monotone_gather"),
+    sites = {"gather": (binning, "expand_gather"),
              "blend": (cuda_blend, "blend_fwd"),
              "blend_bwd": (cuda_blend, "blend_bwd"),
              "prefix": (reduce, "prefix_blocks"),
@@ -234,23 +237,36 @@ def capture_backward_inputs(scene, cam, cfg, seed):
     return capture(run)
 
 
-def check_gather(table, idx):
+def check_gather(table, base, m):
+    """The fused expansion gather against its plain version (scatter +
+    cummax + gather) bit for bit, and monotone_gather on its g_stream;
+    torch.index_select on the same (table, g_stream) is the yardstick."""
     import torch
-    from goi_tpu_torch.raster.gather import (monotone_gather,
-                                             monotone_gather_plain)
-    out = monotone_gather(table, idx)
-    ref = monotone_gather_plain(table, idx)
+    from goi_tpu_torch.raster.gather import (expand_gather,
+                                             expand_gather_plain,
+                                             monotone_gather)
+    g, rows = expand_gather(table, base, m)
+    ref_g, ref_rows = expand_gather_plain(table, base, m)
+    mono = monotone_gather(table, g)
     torch.cuda.synchronize()
-    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+    if not torch.equal(g, ref_g) or not torch.equal(
+            rows.view(torch.int32), ref_rows.view(torch.int32)):
+        raise AssertionError("expand_gather differs from its plain version")
+    if not torch.equal(mono.view(torch.int32), rows.view(torch.int32)):
         raise AssertionError("monotone_gather differs from table[:, idx]")
-    ms = median_ms(lambda: monotone_gather(table, idx))
-    plain_ms = median_ms(lambda: monotone_gather_plain(table, idx))
-    lib_ms = median_ms(lambda: torch.index_select(table, 1, idx))
-    nbytes = 4 * (table.numel() + idx.numel() + out.numel())
+    del ref_g, ref_rows, mono
+    ms = median_ms(lambda: expand_gather(table, base, m))
+    plain_ms = median_ms(lambda: expand_gather_plain(table, base, m))
+    lib_ms = median_ms(lambda: torch.index_select(table, 1, g))
+    mono_ms = median_ms(lambda: monotone_gather(table, g))
+    nbytes = (4 * table.numel() + 8 * base.numel() + 4 * g.numel()
+              + 4 * rows.numel())
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"[kernels] gather C={table.shape[0]} N={table.shape[1]} "
-        f"M={idx.shape[0]}: bit-exact; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+    log(f"[kernels] gather C={table.shape[0]} N={table.shape[1]} M={m}: "
+        f"g_stream and rows bit-exact, monotone_gather bit-exact; fused "
+        f"expand_gather {ms:.4f} ms, plain (scatter + cummax + gather) "
+        f"{plain_ms:.4f} ms, index_select on (table, g_stream) "
+        f"{lib_ms:.4f} ms, monotone_gather {mono_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms (bytes)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
@@ -388,12 +404,20 @@ def profile(run, what, top=12):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the expansion on the card is the fused search + gather kernel: the
+    # plain version's scatter and cummax must not run
+    plain = sorted({e.key for e in events
+                    if "cummax" in e.key or "scatter_reduce" in e.key})
+    if plain:
+        raise AssertionError(f"{what} ran the plain expansion: {plain}")
     log(f"[profile] {what} {wall_ms:.2f} ms wall, device busy "
         f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"{sum(e.count for e in kernels)} device ops")
+        f"{sum(e.count for e in kernels)} device ops; no cummax or "
+        f"scatter_reduce")
     kernels.sort(key=lambda e: -e.self_device_time_total)
     for e in kernels[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
@@ -609,9 +633,9 @@ def kernel_wrappers():
     count is the wrapper's `launches`)."""
     from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
     from goi_tpu_torch.raster.cuda_trace import trace_fwd
-    from goi_tpu_torch.raster.gather import mono_rows, monotone_gather
+    from goi_tpu_torch.raster.gather import expand_gather, mono_rows
     from goi_tpu_torch.raster.reduce import prefix_blocks, prefix_boundary
-    return {"gather": monotone_gather, "blend": blend_fwd,
+    return {"gather": expand_gather, "blend": blend_fwd,
             "blend_bwd": blend_bwd, "prefix": prefix_blocks,
             "trace": trace_fwd, "prefix_boundary": prefix_boundary,
             "mono_rows": mono_rows}
@@ -1045,9 +1069,10 @@ def main() -> int:
 
     # ---- 8. kernels line, result ----
     kernels = [
-        dict(name="monotone_gather", route="cuda",
+        dict(name="expand_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",
-             replaces="goi_tpu/raster/gather.py:48",
+             replaces="goi_tpu/raster/gather.py:48 and "
+                      "goi_tpu/raster/binning.py:414-416",
              launches=launches["gather"], **stats["gather"]),
         dict(name="blend_fwd", route="cuda",
              source="goi_tpu_torch/raster/csrc/blend_fwd.cu",

@@ -2,9 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on
 first use with nvcc into `build/goi_tpu_torch/lib<name>-<hash>.so` at
-the root of the checkout (the hash is of the source and the csrc
-headers, so an edited source never loads a stale library), then loaded
-with ctypes. Wrappers pass
+the root of the checkout (the hash is of the source, the csrc headers
+and the source's nvcc flags, so an edited source or a changed flag
+never loads a stale library), then loaded with ctypes. Wrappers pass
 pointers from `tensor.data_ptr()` and PyTorch's current stream; every C
 entry point returns `cudaGetLastError()` and `check` raises on non-zero.
 """
@@ -22,11 +22,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "goi_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # -fmad=false: every product is rounded on its own, as the plain PyTorch
 # versions round them, so threshold tests (alpha >= 1/255, T < 1e-4)
-# decide the same way in a kernel and in its plain version
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+# decide the same way in a kernel and in its plain version. blend_bwd.cu
+# writes its walk with intrinsics nvcc never contracts and lets its
+# gradient math use FMA.
+CONTRACT = {"blend_bwd"}
+
+
+def flags(name: str) -> list:
+    """nvcc flags of csrc/<name>.cu."""
+    return NVCC_FLAGS + ["-fmad=true" if name in CONTRACT else "-fmad=false"]
 
 _loaded: dict = {}
 
@@ -50,11 +58,12 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    """The library's path, named by a hash of its source and of every
-    header in csrc (a source may include any of them)."""
+    """The library's path, named by a hash of its source, of every
+    header in csrc (a source may include any of them) and of its flags."""
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
     digest = h.hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 
@@ -67,7 +76,7 @@ def _start_build(name: str):
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

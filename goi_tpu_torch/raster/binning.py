@@ -9,8 +9,10 @@ identifyTileRanges, ref:cuda_rasterizer/rasterizer_impl.cu:35-138,
 - instances expand in Gaussian-index order; every Gaussian keeps at
   least one slot (a sentinel when it touches no tile), so the stream's
   Gaussian ids are dense and non-decreasing;
-- the per-Gaussian columns travel through ONE feature-major gather
-  (raster/gather.py, the CUDA kernel on a CUDA tensor);
+- the slot -> Gaussian map and the per-Gaussian columns come from ONE
+  feature-major expansion gather (raster/gather.py `expand_gather`: on
+  a CUDA tensor a kernel that searches each slot's Gaussian in the
+  bases, on a CPU tensor the JAX package's scatter + cummax + gather);
 - an exact ellipse/tile overlap test drops instances no pixel of the
   tile can blend (output-exact);
 - one stable sort on (tile, depth bits) with the Gaussian index as the
@@ -28,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from goi_tpu_torch.raster.gather import monotone_gather
+from goi_tpu_torch.raster.gather import expand_gather
 from goi_tpu_torch.raster.preprocess import TILE, Splats, cell_min_q
 
 # 16^-k for the nibble extract; powers of two, exact in float32
@@ -75,20 +77,10 @@ class Binning:
     g_stream: Optional[torch.Tensor] = None     # (max_instances,) int32
 
 
-def _expand_chunked(sp: Splats, *, grid_x: int, grid_y: int, n_inst: int,
-                    cull: bool):
-    """Expansion for the chunked layout. Returns (tile, g_stream,
-    depth_bits, raw_total, demand); demand counts the forced sentinel
-    slot of every zero-count Gaussian."""
-    num_tiles = grid_x * grid_y
-    dev = sp.depth.device
-    counts_true = sp.tiles_touched.long()
-    counts = torch.clamp(counts_true, min=1)
-    offsets = torch.cumsum(counts, 0)
-    base = offsets - counts
-    demand = offsets[-1]
-    raw_total = counts_true.sum()
-
+def _expansion_table(sp: Splats, base: torch.Tensor,
+                     counts_true: torch.Tensor) -> torch.Tensor:
+    """The per-Gaussian columns the expansion gathers, feature-major
+    (14, N) float32 (ints below 2^24 are exact)."""
     q_cut = torch.clamp(
         2.0 * torch.log(torch.clamp(sp.opacity, min=1e-12) * 255.0),
         min=0.0) * (1.0 + 1e-6)
@@ -106,19 +98,30 @@ def _expand_chunked(sp: Splats, *, grid_x: int, grid_y: int, n_inst: int,
         q_cut,                                                    # 11
         sp.cell_sel[:, 0], sp.cell_sel[:, 1],                     # 12,13
     ]
-    table = torch.stack(cols, dim=0)                              # (14, N)
+    return torch.stack(cols, dim=0)
 
+
+def _expand_chunked(sp: Splats, *, grid_x: int, grid_y: int, n_inst: int,
+                    cull: bool):
+    """Expansion for the chunked layout. Returns (tile, g_stream,
+    depth_bits, raw_total, demand); demand counts the forced sentinel
+    slot of every zero-count Gaussian."""
+    num_tiles = grid_x * grid_y
+    dev = sp.depth.device
+    counts_true = sp.tiles_touched.long()
+    counts = torch.clamp(counts_true, min=1)
+    offsets = torch.cumsum(counts, 0)
+    base = offsets - counts
+    demand = offsets[-1]
+    raw_total = counts_true.sum()
+
+    table = _expansion_table(sp, base, counts_true)               # (14, N)
+    # bases clamp to the last slot under overflow, so several Gaussians
+    # can land there: the highest id owns it
+    g_stream, rows = expand_gather(table, base, n_inst)           # (14, M)
+
+    f32 = torch.float32
     slots = torch.arange(n_inst, device=dev)
-    g_idx = torch.arange(counts.shape[0], device=dev)
-    # mark each Gaussian's first slot, then a running max. Bases clamp
-    # to the last slot under overflow, so several Gaussians can land
-    # there: amax keeps the highest id, which the cummax would keep too
-    mark = torch.zeros(n_inst, dtype=torch.long, device=dev).scatter_reduce_(
-        0, torch.clamp(base, max=n_inst - 1), g_idx, "amax")
-    g_stream = torch.cummax(mark, 0).values.to(torch.int32)
-
-    rows = monotone_gather(table, g_stream)                       # (14, M)
-
     x0 = rows[0].to(torch.int32)
     y0 = rows[1].to(torch.int32)
     w_i = rows[2].to(torch.int32)

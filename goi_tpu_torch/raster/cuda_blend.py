@@ -217,7 +217,8 @@ def blend_bwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
               grid_x: int) -> torch.Tensor:
     """feat (10 + S, M), starts/ends (T,) as for blend_fwd, raw the
     forward's output and grad its gradient, both (T, 256, 4 + S + 3) ->
-    per-instance gradient rows (M, 10 + S) by sorted position."""
+    per-instance gradient rows (M, 10 + S) by sorted position. The tile
+    ranges tile [0, ends[-1]) in order, as the binning gives them."""
     if not _nvcc.is_cuda(feat):
         return blend_bwd_plain(feat, starts, ends, raw, grad, grid_x)
     s_dim = _check_kernel_inputs(feat, starts, ends, raw, grad)
@@ -232,7 +233,8 @@ def blend_bwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     ends = ends.contiguous()
     raw = raw.contiguous()
     grad = grad.contiguous()
-    rows = torch.zeros((feat.shape[1], feat.shape[0]), dtype=torch.float32,
+    # the kernel writes every row, zeros where no pixel blends
+    rows = torch.empty((feat.shape[1], feat.shape[0]), dtype=torch.float32,
                        device=feat.device)
     _nvcc.check(lib.goi_blend_bwd(
         s_dim, feat.data_ptr(), feat.shape[1], starts.data_ptr(),

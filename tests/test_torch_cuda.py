@@ -15,7 +15,8 @@ scan of up to 512 rows in another order); the trace kernel's render at
 the forward's 5e-5, its hit counts and the plain version's exactly (both
 multiply the transmittance in the same order), its lifted features at
 tests/test_trace.py's 1e-4 (sums of up to 256 pixels in another order);
-the fused prefix-boundary reduce and the mono row gather bit for bit.
+the fused prefix-boundary reduce, the expansion gathers and the mono
+row gather bit for bit.
 """
 
 import numpy as np
@@ -28,9 +29,11 @@ from goi_tpu_torch.raster import cuda_blend
 from goi_tpu_torch.raster import reduce as R
 from goi_tpu_torch.raster import cuda_trace
 from goi_tpu_torch.raster.binning import bin_splats_chunked
-from goi_tpu_torch.raster.gather import (mono_rows, mono_rows_plain,
+from goi_tpu_torch.raster.gather import (expand_gather, expand_gather_plain,
+                                         mono_rows, mono_rows_plain,
                                          monotone_gather,
-                                         monotone_gather_plain)
+                                         monotone_gather_plain,
+                                         slot_owners_search)
 from goi_tpu_torch.raster.preprocess import preprocess
 from goi_tpu_torch.raster.render import RasterConfig, render, trace
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
@@ -92,6 +95,54 @@ def test_gather_kernel_bit_exact(cuda):
                        monotone_gather_plain(table, idx).view(torch.int32))
 
 
+@pytest.mark.parametrize("m,c,offset", [(4000, 14, 0), (3999, 14, 0),
+                                         (4001, 5, 1)])
+def test_monotone_gather_kernel_ragged_and_unaligned(cuda, m, c, offset):
+    """m not a multiple of the kernel's 4-slot stores, and an index view
+    that starts off a 16-byte boundary."""
+    rng = np.random.default_rng(m)
+    idx = np.repeat(np.arange(3000, dtype=np.int32),
+                    rng.integers(1, 4, 3000))[:m + offset]
+    table = torch.as_tensor(rng.normal(0, 1, (c, 3000)).astype(np.float32),
+                            device=cuda)
+    idx = torch.as_tensor(idx, device=cuda)[offset:]
+    got = monotone_gather(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32),
+                       monotone_gather_plain(table, idx).view(torch.int32))
+
+
+def _bases(rng, n, zero_share):
+    counts = rng.integers(1, 9, n)
+    counts[rng.random(n) < zero_share] = 0
+    c1 = np.maximum(counts, 1)
+    return np.cumsum(c1) - c1, int(c1.sum())
+
+
+@pytest.mark.parametrize("n,budget,ragged", [
+    (5000, 1.3, False), (5000, 1.3, True), (5000, 0.5, False),
+    (5000, 0.5, True), (3, 0.5, True), (70_000, 1.0, False)])
+def test_expand_gather_kernel_bit_exact(cuda, n, budget, ragged):
+    """The fused search + gather against the scatter + cummax + gather,
+    with room to spare, under overflow (bases clamped onto the last slot)
+    and at an m that is not a multiple of 4."""
+    rng = np.random.default_rng(n + int(10 * budget) + ragged)
+    base, demand = _bases(rng, n, 0.3)
+    m = max(int(demand * budget) // 4 * 4 + (3 if ragged else 0), 1)
+    base = torch.as_tensor(base, device=cuda)
+    table = torch.as_tensor(rng.normal(0, 1, (14, n)).astype(np.float32),
+                            device=cuda)
+    before = expand_gather.launches
+    g, rows = expand_gather(table, base, m)
+    torch.cuda.synchronize()
+    assert expand_gather.launches == before + 1
+    want_g, want_rows = expand_gather_plain(table, base, m)
+    assert torch.equal(g, want_g)
+    assert torch.equal(g, slot_owners_search(base, m))
+    assert torch.equal(rows.view(torch.int32), want_rows.view(torch.int32))
+    assert int(g[-1]) == n - 1     # slots past the demand: the last id
+
+
 @pytest.mark.parametrize("sem_dim", cuda_blend.SEM_DIMS)
 def test_blend_kernel_matches_plain(cuda, sem_dim):
     feat, b = _packed(sem_dim, cuda)
@@ -132,6 +183,63 @@ def test_blend_bwd_kernel_matches_plain(cuda, sem_dim):
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-4)
     kept = int(b.tile_end[-1])
     assert not got[kept:].any() and got[:kept].abs().sum() > 0
+
+
+def _deep_tiles(sem_dim, device, depths=(0, 700, 1200, 40, 900, 513),
+                tail=100):
+    """Packed instances of six 16x16 tiles (3 x 2) with the given range
+    lengths, over 512 deep in most: splats crowd one corner of each tile,
+    so pixels there stop after a few hundred instances and pixels far
+    from it never do, each in another batch of the kernel's walk."""
+    rng = np.random.default_rng(sem_dim)
+    cols = []
+    for t, depth in enumerate(depths):
+        ox, oy = (t % 3) * 16, (t // 3) * 16
+        x = ox + rng.normal(3, 3, depth)
+        y = oy + rng.normal(4, 3, depth)
+        sig = rng.uniform(1.0, 4.0, depth)
+        rho = rng.uniform(-0.3, 0.3, depth)
+        ca = 1 / (sig ** 2 * (1 - rho ** 2))
+        cc = ca * rng.uniform(0.7, 1.3, depth)
+        cb = -rho * np.sqrt(ca * cc)
+        opa = rng.uniform(0.02, 0.3, depth)
+        rest = rng.normal(0, 1, (4 + sem_dim, depth))
+        cols.append(np.vstack([x, y, ca, cb, cc, opa, rest]))
+    feat = np.hstack(cols + [rng.normal(0, 1, (10 + sem_dim, tail))])
+    ends = np.cumsum(depths).astype(np.int32)
+    starts = (ends - np.asarray(depths)).astype(np.int32)
+    return (torch.as_tensor(feat.astype(np.float32), device=device),
+            torch.as_tensor(starts, device=device),
+            torch.as_tensor(ends, device=device))
+
+
+@pytest.mark.parametrize("sem_dim", cuda_blend.SEM_DIMS)
+def test_blend_bwd_kernel_deep_tiles(cuda, sem_dim):
+    feat, starts, ends = _deep_tiles(sem_dim, cuda)
+    raw = cuda_blend.blend_fwd(feat, starts, ends, 3)
+    walked = raw[..., -2]
+    assert int(walked.max()) > 512
+    # pixels that stopped (walked less than their tile's range) did so
+    # in different 256-instance batches of the kernel's walk
+    depth = (ends - starts).float()[:, None].expand_as(walked)
+    stopped = walked[walked < depth]
+    assert len(set(((stopped - 1) // 256).tolist())) >= 2
+    gen = torch.Generator(device=cuda).manual_seed(sem_dim)
+    grad = torch.randn(raw.shape, generator=gen, device=cuda)
+    # the allocator hands the wrapper's torch.empty this NaN-filled block
+    junk = torch.full((feat.shape[1], feat.shape[0]), float("nan"),
+                      device=cuda)
+    del junk
+    got = cuda_blend.blend_bwd(feat, starts, ends, raw, grad, 3)
+    again = cuda_blend.blend_bwd(feat, starts, ends, raw, grad, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = cuda_blend.blend_bwd_plain(feat, starts, ends, raw, grad, 3)
+    _close_to_peak(got, want, f"S={sem_dim}")
+    zero = ~want.any(dim=1)
+    kept = int(ends[-1])
+    assert bool(zero[kept:].all()) and not got[kept:].any()
+    assert not got[zero].any() and bool(zero[:kept].any())
 
 
 @pytest.mark.parametrize("blk,nb,d,masked", [

@@ -73,6 +73,30 @@ def test_gather_wrapper_raises_without_library(no_library):
     assert gather.monotone_gather.launches == before
 
 
+def test_expand_gather_wrapper_raises_without_library(no_library):
+    before = gather.expand_gather.launches
+    base = torch.arange(8) * 2
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gather.expand_gather(torch.ones(3, 8), base, 20)
+    with pytest.raises(TypeError):
+        gather.expand_gather(torch.ones(3, 8), base.int(), 20)
+    assert gather.expand_gather.launches == before
+
+
+def test_nvcc_flags_name_the_library():
+    """A library's file name hashes its flags: a source built with other
+    flags never loads a stale library."""
+    assert "-fmad=true" in _nvcc.flags("blend_bwd")
+    assert "-fmad=false" in _nvcc.flags("blend_fwd")
+    path = _nvcc._lib_path("blend_fwd")
+    _nvcc.CONTRACT.add("blend_fwd")
+    try:
+        assert _nvcc._lib_path("blend_fwd") != path
+    finally:
+        _nvcc.CONTRACT.discard("blend_fwd")
+    assert _nvcc._lib_path("blend_fwd") == path
+
+
 def test_blend_wrapper_raises_without_library(no_library):
     before = cuda_blend.blend_fwd.launches
     feat = torch.zeros(20, 16)
