@@ -16,7 +16,9 @@ exits non-zero without the final result line:
    scatter + cummax + gather, beside torch.index_select on the same
    (table, g_stream), and monotone_gather bit-exact on that stream; the
    forward blend within atol = rtol = 5e-5 on a 100k-Gaussian 512x512
-   frame and on the full frame; the blend backward and the block prefix
+   frame and on the full frame, with the share of walked pairs that its
+   per-warp cull keeps (the cull's plain twin, blend.block_cull_plain,
+   on the card); the blend backward and the block prefix
    on that 100k frame's backward here and on a full-width training
    step's in phase 5 (tolerances at TOL_BWD and TOL_PREFIX);
 4. [main] the query path: a seeded 1,000,000-Gaussian scene (SH degree
@@ -42,7 +44,8 @@ exits non-zero without the final result line:
    (10, H, W) normal feature map over the 3 views at 1296x968 (reduce
    'chain', one view also with dense_reduce=True); the trace kernel
    against its plain version on the 100k 512x512 frame and on one full
-   view (hit counts exact, rows within TOL_TRACE), trace's render
+   view (hit counts exact, rows within TOL_TRACE, its raw output
+   bit-identical to blend_fwd's on the same inputs), trace's render
    against render()'s within 1e-5, num_gsem a multiple of 10 with hits,
    a small scene's trace on the card against the CPU; p50/p95 wall time
    and one profiled call;
@@ -272,9 +275,42 @@ def check_gather(table, base, m):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
 
 
+def cull_kept_pairs(feat, starts, ends, grid_x, raw, chunk=1 << 18):
+    """Walked pixel x instance pairs that the blend kernels' per-warp cull
+    keeps, by its plain twin (blend.block_cull_plain) on the card: the
+    instance at offset k of its tile's range is walked by the pixels
+    whose walked count exceeds k, and kept for them when their 8x4 block
+    keeps it."""
+    import torch
+    from goi_tpu_torch.raster.blend import (block_cull_plain,
+                                            tile_block_origins,
+                                            tile_pixel_blocks)
+    dev = raw.device
+    num_tiles = starts.numel()
+    # walked counts of each 8x4 block's 32 pixels, (T, 8, 32)
+    wb = raw[..., -2][:, torch.argsort(tile_pixel_blocks(dev), stable=True)
+                      ].view(num_tiles, 8, 32)
+    bx0, by0 = tile_block_origins(grid_x, num_tiles // grid_x, device=dev)
+    counts = (ends - starts).long()
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev),
+                                      counts)
+    first = torch.cumsum(counts, 0) - counts
+    kept = 0
+    for c0 in range(0, tile_of.numel(), chunk):
+        t = tile_of[c0:c0 + chunk]
+        k = torch.arange(c0, c0 + t.numel(), device=dev) - first[t]
+        f = feat[:, starts[t].long() + k]
+        keep = block_cull_plain(f[0:2].T[:, None], f[2:5].T[:, None],
+                                f[5][:, None], bx0[t], by0[t])   # (c, 8)
+        n_walk = (wb[t] > k[:, None, None].float()).sum(-1)     # (c, 8)
+        kept += int((keep * n_walk).sum())
+    return kept
+
+
 def check_blend(feat, starts, ends, grid_x, label):
     import torch
     from goi_tpu_torch.raster.cuda_blend import blend_fwd, blend_fwd_plain
+    from goi_tpu_torch.raster.cuda_trace import trace_fwd_plain
     out = blend_fwd(feat, starts, ends, grid_x)
     torch.cuda.synchronize()
     ref = blend_fwd_plain(feat, starts, ends, grid_x)
@@ -286,9 +322,27 @@ def check_blend(feat, starts, ends, grid_x, label):
         raise AssertionError(f"blend {label}: non-finite kernel output")
     if not torch.allclose(a, b, rtol=TOL, atol=TOL):
         raise AssertionError(f"blend {label}: max |kernel - plain| {err}")
-    count_diff = int((out[..., n_out + 1:] != ref[..., n_out + 1:]).sum())
+    # walked and blended counts exactly against the plain trace's render,
+    # which multiplies the transmittance one instance at a time as the
+    # kernel does; the plain blend's per-chunk cumprod rounds otherwise
+    # and may stop a pixel one instance apart near T = 1e-4
+    seq_raw, _ = trace_fwd_plain(feat, starts, ends,
+                                 torch.zeros((starts.numel(), 256, 1),
+                                             device=feat.device), grid_x)
+    count_diff = int((out[..., n_out + 1:] != seq_raw[..., n_out + 1:])
+                     .sum())
+    if count_diff:
+        raise AssertionError(f"blend {label}: {count_diff} walked/blended "
+                             f"counts differ from the sequential plain "
+                             f"version's")
+    del seq_raw
+    chunk_diff = int((out[..., n_out + 1:] != ref[..., n_out + 1:]).sum())
     walked = float(out[..., n_out + 1].double().sum())
     blended = float(out[..., n_out + 2].double().sum())
+    kept = cull_kept_pairs(feat, starts, ends, grid_x, out)
+    if not blended <= kept <= walked:
+        raise AssertionError(f"blend {label}: the cull keeps {kept} pairs, "
+                             f"outside [blended, walked]")
     ms = median_ms(lambda: blend_fwd(feat, starts, ends, grid_x))
     plain_ms = median_ms(lambda: blend_fwd_plain(feat, starts, ends, grid_x),
                          iters=3, warmup=1)
@@ -298,9 +352,12 @@ def check_blend(feat, starts, ends, grid_x, label):
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_FP32_PER_S * 1e3
     log(f"[kernels] blend {label}: tiles={starts.numel()} "
-        f"M={feat.shape[1]} max_err={err:.3e} (tol {TOL}) count "
-        f"mismatches={count_diff}; pairs walked={walked:.0f} "
-        f"blended={blended:.0f}; kernel {ms:.4f} ms, plain "
+        f"M={feat.shape[1]} max_err={err:.3e} (tol {TOL}); walked/blended "
+        f"counts equal to the sequential plain's (the chunked plain's "
+        f"differ in {chunk_diff}); pairs walked={walked:.0f} "
+        f"blended={blended:.0f}, the per-warp cull keeps {kept} "
+        f"({kept / max(walked, 1):.4f} of walked, plain twin); kernel "
+        f"{ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -668,9 +725,16 @@ def check_trace(feat, starts, ends, aug, grid_x, label):
     the render sums within TOL, hit counts exactly, lifted rows within
     TOL_TRACE; the plain version is timed on its one checking run."""
     import torch
+    from goi_tpu_torch.raster.cuda_blend import blend_fwd
     from goi_tpu_torch.raster.cuda_trace import trace_fwd, trace_fwd_plain
     raw, rows = trace_fwd(feat, starts, ends, aug, grid_x)
+    fwd_raw = blend_fwd(feat, starts, ends, grid_x)
     torch.cuda.synchronize()
+    # one walk (csrc/walk.cuh): the embedded render is the forward's
+    if not torch.equal(raw, fwd_raw):
+        raise AssertionError(f"trace {label}: raw output differs from "
+                             f"blend_fwd's on the same inputs")
+    del fwd_raw
     (ref_raw, ref_rows), plain_ms = timed_ms(
         lambda: trace_fwd_plain(feat, starts, ends, aug, grid_x))
     n_out = feat.shape[0] - 6
@@ -690,6 +754,9 @@ def check_trace(feat, starts, ends, aug, grid_x, label):
                              f"{err_rows}")
     count_diff = int((raw[..., n_out + 1:] != ref_raw[..., n_out + 1:])
                      .sum())
+    if count_diff:
+        raise AssertionError(f"trace {label}: {count_diff} walked/blended "
+                             f"counts differ from the plain version's")
     walked = float(raw[..., n_out + 1].double().sum())
     blended = float(raw[..., n_out + 2].double().sum())
     hits = float(rows[:, -1].double().sum())
@@ -702,10 +769,11 @@ def check_trace(feat, starts, ends, aug, grid_x, label):
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_FP32_PER_S * 1e3
     log(f"[kernels] trace {label}: tiles={starts.numel()} M={feat.shape[1]} "
-        f"lifted={sa}; render max_err={err_raw:.3e} (tol {TOL}), rows "
+        f"lifted={sa}; raw bit-identical to blend_fwd's; render max_err="
+        f"{err_raw:.3e} (tol {TOL}), rows "
         f"max_err={err_rows:.3e} (tol rtol {TOL_TRACE[0]} + {TOL_TRACE[1]} x "
-        f"peak), hit counts equal, walked/blended count mismatches="
-        f"{count_diff}; pairs walked={walked:.0f} blended={blended:.0f} "
+        f"peak), hit, walked and blended counts equal; pairs "
+        f"walked={walked:.0f} blended={blended:.0f} "
         f"hits={hits:.0f}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
         f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
         f"operations {ops_ms:.4f})")

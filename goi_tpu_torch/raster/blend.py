@@ -8,9 +8,10 @@ of one chunk of a tile's depth-ordered instances, vectorized over
 backward-blend kernels (raster/cuda_blend.py) compose it chunk by
 chunk. The trace kernel's plain version (raster/cuda_trace.py) takes
 only its per-pair alpha (`pair_alpha`) and multiplies the
-transmittance itself, in the kernel's order. The XLA-backend
-`blend_tiles` (with its `tile_cap` truncation) is not ported: the
-port's blend walks each tile's exact range.
+transmittance itself, in the kernel's order. `block_cull_plain` is the
+kernels' per-warp sub-tile cull (csrc/walk.cuh) in PyTorch. The
+XLA-backend `blend_tiles` (with its `tile_cap` truncation) is not
+ported: the port's blend walks each tile's exact range.
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ import torch
 
 from goi_tpu_torch.raster.preprocess import TILE
 from goi_tpu_torch.raster.reference import ALPHA_CLAMP, ALPHA_MIN, T_EPS
+
+BLOCK_W, BLOCK_H = 8, 4     # a warp's pixel block in the blend kernels
+CULL_REL = 2.0 ** -18       # csrc/walk.cuh's margin, relative
+CULL_SAFE = 1e30            # ... and its overflow guard
 
 
 def _tile_pixel_coords(grid_x: int, grid_y: int, device=None):
@@ -47,6 +52,72 @@ def pair_alpha(mean2d, conic, opacity, m, xs, ys):
     alpha = torch.clamp(raw, max=ALPHA_CLAMP)
     valid = m[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
     return dx, dy, raw, alpha, valid
+
+
+def tile_pixel_blocks(device=None):
+    """(256,) the 8x4 warp block of each of a tile's pixels (raster
+    order), numbered as in `tile_block_origins`."""
+    p = torch.arange(TILE * TILE, device=device)
+    return (p // TILE // BLOCK_H) * (TILE // BLOCK_W) + (p % TILE) // BLOCK_W
+
+
+def tile_block_origins(grid_x: int, grid_y: int, device=None):
+    """(T, 8) float top-left pixel coordinates (x, y) of every tile's
+    8x4 warp blocks; block w lies at (w % 2, w // 2) in the tile."""
+    t = torch.arange(grid_x * grid_y, device=device)[:, None]
+    w = torch.arange(TILE * TILE // 32, device=device)
+    xs = (t % grid_x) * TILE + (w % 2) * BLOCK_W
+    ys = (t // grid_x) * TILE + (w // 2) * BLOCK_H
+    return xs.to(torch.float32), ys.to(torch.float32)
+
+
+def block_cull_plain(mean2d, conic, opacity, xs0, ys0):
+    """The blend kernels' per-warp cull (csrc/walk.cuh, which states the
+    margin's derivation): whether an instance may blend a pixel of the
+    8x4 block whose top-left pixel is (xs0, ys0). mean2d (..., 2), conic
+    (..., 3), opacity (...); all broadcast against xs0, ys0. An instance
+    is dropped only when the exact minimum of its conic quadratic over
+    the block's pixel box exceeds q_cut = 2 ln(255 opa) by more than
+    2^-18 (S + |q_cut| + 1); one whose fields are not finite, whose
+    opacity is <= 0, whose conic is not positive definite, or whose terms
+    could overflow is kept. torch.fmax/fmin drop a NaN as the device's
+    fmaxf/fminf do."""
+    mx, my = mean2d[..., 0], mean2d[..., 1]
+    ca, cb, cc = conic[..., 0], conic[..., 1], conic[..., 2]
+    fin = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(ca)
+           & torch.isfinite(cb) & torch.isfinite(cc)
+           & torch.isfinite(opacity))
+    decidable = fin & (opacity > 0.0) & (ca > 0.0) & (cc > 0.0) \
+        & (ca * cc - cb * cb > 0.0)
+    q_cut = torch.where(decidable, 2.0 * torch.log(255.0 * opacity),
+                        torch.full_like(opacity, float("inf")))
+    lx = xs0 - mx
+    ux = (xs0 + (BLOCK_W - 1)) - mx
+    ly = ys0 - my
+    uy = (ys0 + (BLOCK_H - 1)) - my
+    dxm = torch.fmax(-lx, ux)
+    dym = torch.fmax(-ly, uy)
+    d = torch.fmax(torch.ones_like(dxm), torch.fmax(dxm, dym))
+    mc = torch.fmax(torch.fmax(ca, cb.abs()), cc)
+    safe = mc * d * d < CULL_SAFE
+    s = ca * dxm * dxm + cc * dym * dym + 2.0 * cb.abs() * dxm * dym
+    lim = q_cut + CULL_REL * (s + q_cut.abs() + 1.0)
+    ia, ic = 1.0 / ca, 1.0 / cc
+
+    def clip(v, lo, hi):
+        return torch.fmin(torch.fmax(v, lo), hi)
+
+    def quad(dx, dy):
+        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+
+    min_q = torch.fmin(
+        torch.fmin(quad(lx, clip(-cb * lx * ic, ly, uy)),
+                   quad(ux, clip(-cb * ux * ic, ly, uy))),
+        torch.fmin(quad(clip(-cb * ly * ia, lx, ux), ly),
+                   quad(clip(-cb * uy * ia, lx, ux), uy)))
+    inside = (lx <= 0.0) & (ux >= 0.0) & (ly <= 0.0) & (uy >= 0.0)
+    min_q = torch.where(inside, torch.zeros_like(min_q), min_q)
+    return ~(safe & (min_q > lim))
 
 
 def chunk_weights(mean2d, conic, opacity, m, xs, ys, t_all):

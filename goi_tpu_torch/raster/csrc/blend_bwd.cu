@@ -351,14 +351,11 @@ int launch(const float* feat, long long m, const int* starts,
            const int* ends, int num_tiles, int grid_x, const float* raw,
            const float* grad, float* rows, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<S>();
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        blend_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    sized = true;
-  }
+  // the attribute belongs to the current device: set it on every launch
+  const cudaError_t err = cudaFuncSetAttribute(
+      blend_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
   blend_bwd_kernel<S><<<TAIL_BLOCKS + num_tiles, PIX, bytes, stream>>>(
       feat, m, starts, ends, num_tiles, grid_x, raw, grad, rows);
   return (int)cudaSuccess;

@@ -4,50 +4,47 @@
 // `_blend_core_fwd`), the TPU form of renderCUDA
 // (ref:cuda_rasterizer/forward.cu:261-386). Each tile blends RGB, S
 // semantic channels and depth of its depth-sorted instance range
-// [tile_start, tile_end) front to back:
-//   power = -0.5 (ca dx^2 + cc dy^2) - cb dx dy ; skip if power > 0
-//   alpha = min(0.99, opa exp(power))           ; skip if alpha < 1/255
-//   test_T = T (1 - alpha) ; stop (sticky, splat excluded) if < 1e-4
-//   acc += alpha T f ; T = test_T
-// and writes the sums, the blended-only T (the caller composites the
-// background), and per pixel the number of instances it walked and
-// blended.
+// [tile_start, tile_end) front to back with csrc/walk.cuh's step (the
+// 1/255 skip, the 0.99 clamp, the sticky T < 1e-4 stop with the stopping
+// splat excluded), acc += alpha T f, and writes the sums, the
+// blended-only T (the caller composites the background), and per pixel
+// the number of instances it walked and blended.
 //
 // The TPU kernel evaluated all pixel x instance pairs of a 256-wide
 // chunk at once: the exponent as a moment-basis matmul with a +1e-4
 // guard and the transmittance as a log-space triangular-matmul cumprod
 // (MXU workarounds, PARITY.md deviations 8 and 3). Neither carries over:
 // a thread walks its pixel's instances in order with the exact per-pixel
-// expressions above, as the CUDA reference does.
+// expressions, as the CUDA reference does.
 //
-// Bound on the H100: the pixel x instance pairs walked, each a few fp32
-// multiplies and one expf, plus a multiply-add per output channel for
-// every blended pair; feature bytes are small beside that (each instance
-// is read once per tile that holds it). The design keeps the pair loop
-// lean: a batch of up to 256 instances is loaded cooperatively into
-// shared memory (one coalesced row per feature), every thread then reads
-// the same shared word (a broadcast, no bank conflicts), the 4 + S
-// accumulators and T live in registers (S is a template parameter), and
-// the CTA stops at the next batch once every pixel is done
-// (__syncthreads_count vote). expf is the accurate one: the library is
-// built without --use_fast_math, and with -fmad=false so every product
-// rounds as the plain PyTorch version's does.
+// Bound on the H100: operations, the pixel x instance pairs walked, each
+// a few fp32 multiplies and one expf, plus a multiply-add per output
+// channel for every blended pair; feature bytes are small beside that
+// (each instance is read once per tile that holds it). The binning culls
+// per 16x16 tile, so on a seeded 1M-Gaussian frame two thirds of the
+// walked pairs only skip (PERF.md). The design:
+// - a batch of up to 256 instances is loaded cooperatively into shared
+//   memory (one coalesced row per feature, plus the cull's terms);
+// - each warp (an 8x4 pixel block) culls the batch against its block
+//   (walk.cuh) and walks only the instances it keeps, in order: every
+//   thread reads the same shared word (a broadcast, no bank conflicts);
+// - the 4 + S accumulators and T live in registers (S is a template
+//   parameter), the walked count comes from the stopping position;
+// - a warp whose 32 pixels are done stops walking, and the CTA stops
+//   loading batches once all 256 are (__syncthreads_count vote).
+// expf is the accurate one: the library is built without
+// --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "walk.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;
-constexpr int BATCH = 256;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_CLAMP = 0.99f;
-constexpr float T_EPS = 1e-4f;
+using namespace walk;
 
-// feat rows: 0 x, 1 y, 2 conic a, 3 conic b, 4 conic c, 5 opacity,
-// 6..8 rgb, 9..8+S semantics, 9+S depth. out per pixel: 4+S sums, T,
-// walked, blended.
+// out per pixel (at ly * 16 + lx): 4+S sums, T, walked, blended.
 template <int S>
 __global__ void __launch_bounds__(PIX)
 blend_fwd_kernel(const float* __restrict__ feat, long long ld,
@@ -57,61 +54,39 @@ blend_fwd_kernel(const float* __restrict__ feat, long long ld,
   constexpr int NF = 10 + S;
   constexpr int NOUT = 4 + S;
   constexpr int OUTC = NOUT + 3;
-  __shared__ float sh[NF][BATCH];
+  __shared__ float sh[(NF + CULL_ROWS) * BATCH];
+  __shared__ uint32_t lists[WARPS][BATCH / 4];   // a byte per entry
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const float fx = (float)((t % grid_x) * TILE + p % TILE);
-  const float fy = (float)((t / grid_x) * TILE + p / TILE);
+  const int lane = p & 31;
+  const int warp = p >> 5;
+  const int lx = pixel_x(p);
+  const int ly = pixel_y(p);
+  const float tx0 = (float)((t % grid_x) * TILE);
+  const float ty0 = (float)((t / grid_x) * TILE);
+  const float fx = tx0 + (float)lx;
+  const float fy = ty0 + (float)ly;
+  const float bx0 = tx0 + (float)((warp & 1) * BLOCK_W);
+  const float by0 = ty0 + (float)((warp >> 1) * BLOCK_H);
   const int start = starts[t];
   const int end = ends[t];
+  uint8_t* list = reinterpret_cast<uint8_t*>(lists[warp]);
 
-  float acc[NOUT];
-#pragma unroll
-  for (int f = 0; f < NOUT; ++f) acc[f] = 0.f;
-  float T = 1.f;
-  bool done = false;
-  int walked = 0;
-  int blended = 0;
-
+  Pixel<NOUT> px(end);
   for (int base = start; base < end; base += BATCH) {
     // also the barrier that protects sh from the previous batch's reads
-    if (__syncthreads_count(done) == PIX) break;
+    if (__syncthreads_count(px.done) == PIX) break;
     const int n = min(BATCH, end - base);
-    if (p < n) {
-#pragma unroll
-      for (int r = 0; r < NF; ++r) sh[r][p] = feat[r * ld + base + p];
-    }
+    load_batch<NF>(sh, feat, ld, base, n, p);
     __syncthreads();
-    for (int j = 0; j < n && !done; ++j) {
-      ++walked;
-      const float dx = sh[0][j] - fx;
-      const float dy = sh[1][j] - fy;
-      const float power =
-          -0.5f * (sh[2][j] * dx * dx + sh[4][j] * dy * dy) -
-          sh[3][j] * dx * dy;
-      if (power > 0.f) continue;
-      const float alpha = fminf(sh[5][j] * expf(power), ALPHA_CLAMP);
-      if (alpha < ALPHA_MIN) continue;
-      const float test_T = T * (1.f - alpha);
-      if (test_T < T_EPS) {
-        done = true;
-        break;
-      }
-      const float w = alpha * T;
-#pragma unroll
-      for (int f = 0; f < NOUT; ++f) acc[f] += w * sh[6 + f][j];
-      T = test_T;
-      ++blended;
-    }
+    if (__all_sync(FULL, px.done)) continue;
+    const int cnt = cull<NF>(sh, n, bx0, by0, list, lane);
+    walk_list<NOUT>(sh, list, cnt, base, fx, fy, 1.f, px,
+                    [](int, bool) {});
   }
 
-  float* o = out + ((long long)t * PIX + p) * OUTC;
-#pragma unroll
-  for (int f = 0; f < NOUT; ++f) o[f] = acc[f];
-  o[NOUT] = T;
-  o[NOUT + 1] = (float)walked;
-  o[NOUT + 2] = (float)blended;
+  px.write(out + ((long long)t * PIX + ly * TILE + lx) * OUTC, start);
 }
 
 template <int S>

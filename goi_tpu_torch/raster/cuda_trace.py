@@ -113,7 +113,8 @@ def trace_fwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     """feat (10 + S, M) float32 packed instances, starts/ends (T,) int32
     tile ranges, aug (T, 256, S_img + 1) float32 per-pixel features with
     the ones channel -> (raw (T, 256, 4 + S + 3) as cuda_blend.blend_fwd's,
-    rows (M, S_img + 1) by sorted position)."""
+    rows (M, S_img + 1) by sorted position). The tile ranges tile
+    [0, ends[-1]) in order, as the binning gives them."""
     num_tiles = starts.shape[0]
     sa = _check_lift_width(aug, num_tiles)
     if not _nvcc.is_cuda(feat):
@@ -126,7 +127,8 @@ def trace_fwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     aug = aug.contiguous()
     out = torch.empty((num_tiles, PIX, s_dim + 7), dtype=torch.float32,
                       device=feat.device)
-    rows = torch.zeros((feat.shape[1], sa), dtype=torch.float32,
+    # the kernel writes every row, zeros where no pixel hits
+    rows = torch.empty((feat.shape[1], sa), dtype=torch.float32,
                        device=feat.device)
     _nvcc.check(lib.goi_trace_fwd(
         s_dim, feat.data_ptr(), feat.shape[1], starts.data_ptr(),

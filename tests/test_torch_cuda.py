@@ -39,6 +39,9 @@ from goi_tpu_torch.raster.render import RasterConfig, render, trace
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
 from goi_tpu_torch.train.distill import create_distill_state, distill_loss
 from goi_tpu_torch.train.optim import OptimConfig
+# by its basename (pytest puts tests/ on the path): a machine may have
+# another package named `tests` installed
+from test_torch_block_cull import ADVERSARIAL, REGION, _adversarial
 
 pytestmark = pytest.mark.cuda
 
@@ -240,6 +243,159 @@ def test_blend_bwd_kernel_deep_tiles(cuda, sem_dim):
     kept = int(ends[-1])
     assert bool(zero[kept:].all()) and not got[kept:].any()
     assert not got[zero].any() and bool(zero[:kept].any())
+
+
+@pytest.mark.parametrize("sem_dim", cuda_blend.SEM_DIMS)
+def test_blend_fwd_kernel_deep_tiles(cuda, sem_dim):
+    """Ranges of several 256-instance batches, pixels that stop in
+    different batches and warps that stop before their CTA: the walked
+    counts, derived from the stopping position, equal the plain
+    version's, and so do the sums."""
+    feat, starts, ends = _deep_tiles(sem_dim, cuda)
+    before = cuda_blend.blend_fwd.launches
+    got = cuda_blend.blend_fwd(feat, starts, ends, 3)
+    torch.cuda.synchronize()
+    assert cuda_blend.blend_fwd.launches == before + 1
+    want = cuda_blend.blend_fwd_plain(feat, starts, ends, 3)
+    n = 4 + sem_dim + 1
+    torch.testing.assert_close(got[..., :n], want[..., :n], rtol=5e-5,
+                               atol=5e-5)
+    assert torch.equal(got[..., n:], want[..., n:])
+    walked = got[..., -2]
+    depth = (ends - starts).float()[:, None].expand_as(walked)
+    stopped = walked[walked < depth]
+    assert len(set(((stopped - 1) // 256).tolist())) >= 2
+
+
+def _aug(num_tiles, s_img, seed, device, outside=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    aug = torch.randn((num_tiles, 256, s_img + 1), generator=gen,
+                      device=device)
+    aug[..., -1] = 1.0
+    if outside:
+        aug[-outside:] = 0.0    # tiles outside the image lift nothing
+    return aug
+
+
+@pytest.mark.parametrize("sem_dim", cuda_blend.SEM_DIMS)
+def test_trace_kernel_deep_tiles(cuda, sem_dim):
+    feat, starts, ends = _deep_tiles(sem_dim, cuda)
+    aug = _aug(6, 10, sem_dim, cuda)
+    raw, rows = cuda_trace.trace_fwd(feat, starts, ends, aug, 3)
+    torch.cuda.synchronize()
+    want_raw, want_rows = cuda_trace.trace_fwd_plain(feat, starts, ends,
+                                                     aug, 3)
+    n = 4 + sem_dim + 1
+    torch.testing.assert_close(raw[..., :n], want_raw[..., :n], rtol=5e-5,
+                               atol=5e-5)
+    assert torch.equal(raw[..., n:], want_raw[..., n:])
+    assert torch.equal(rows[:, -1], want_rows[:, -1])
+    torch.testing.assert_close(rows, want_rows, rtol=1e-4, atol=1e-4)
+    assert torch.equal(raw, cuda_blend.blend_fwd(feat, starts, ends, 3))
+
+
+@pytest.mark.parametrize("sem_dim", cuda_blend.SEM_DIMS)
+def test_blend_fwd_raw_bit_identical_to_trace_raw(cuda, sem_dim):
+    """The two kernels share csrc/walk.cuh: the trace's embedded render
+    is the forward's, bit for bit, at every semantic width."""
+    feat, b = _packed(sem_dim, cuda)
+    raw = cuda_blend.blend_fwd(feat, b.tile_start, b.tile_end, 10)
+    for s_img in (0, 10, 31):
+        traced, _ = cuda_trace.trace_fwd(feat, b.tile_start, b.tile_end,
+                                         _aug(80, s_img, s_img, cuda), 10)
+        assert torch.equal(raw, traced), s_img
+
+
+@pytest.mark.parametrize("deep", [False, True])
+def test_trace_kernel_writes_every_row(cuda, deep):
+    """Rows are allocated uninitialised: the tail past the last tile's
+    range and the instances no pixel hits (past a pixel's stop, culled,
+    or with alpha <= 0.005 everywhere) come back as zeros."""
+    if deep:
+        feat, starts, ends = _deep_tiles(10, cuda)
+        grid_x, num_tiles = 3, 6
+    else:
+        feat, b = _packed(10, cuda)
+        starts, ends, grid_x, num_tiles = b.tile_start, b.tile_end, 10, 80
+    aug = _aug(num_tiles, 10, 3, cuda, outside=num_tiles // 8)
+    # the allocator hands the wrapper's torch.empty this NaN-filled block
+    junk = torch.full((feat.shape[1], 11), float("nan"), device=cuda)
+    del junk
+    _, rows = cuda_trace.trace_fwd(feat, starts, ends, aug, grid_x)
+    _, again = cuda_trace.trace_fwd(feat, starts, ends, aug, grid_x)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, again)
+    _, want = cuda_trace.trace_fwd_plain(feat, starts, ends, aug, grid_x)
+    kept = int(ends[-1])
+    assert kept < feat.shape[1] and not rows[kept:].any()
+    zero = want[:, -1] == 0
+    assert bool(zero[:kept].any()) and not rows[zero].any()
+    assert bool((rows[:kept, -1] > 0).any())
+
+
+def _adversarial_tiles(case, sem_dim, device, groups=10):
+    """Packed instances of a 2 x 2g grid of tiles from the adversarial
+    splats of tests/test_torch_block_cull.py (over its 32x32 region, 2 x 2
+    tiles): group k's share of them, moved down by 32k pixels, fills the
+    ranges of its four tiles in splat order. For "nan_fields", one splat
+    in 37 of "thin_rotated" takes a splat with a NaN field, so that pixels
+    walk past several. Returns the features, the same with each NaN splat
+    replaced by its stand-in (a zero conic at opacity 1: alpha 0.99 at
+    every pixel, which the kernels give a NaN power or opacity; the plain
+    versions skip a NaN pair), starts and ends."""
+    rng = np.random.default_rng(ADVERSARIAL.index(case))
+    if case == "nan_fields":
+        mean, conic, opa = _adversarial("thin_rotated", rng)
+        nan = _adversarial("nan_fields", rng)
+        sel = torch.arange(len(opa)) % 37 == 36
+        for a, b in zip((mean, conic, opa), nan):
+            a[sel] = b[sel]
+    else:
+        mean, conic, opa = _adversarial(case, rng)
+    per = len(opa) // groups
+    n = per * groups
+    fields = torch.cat([mean, conic, opa[:, None]], 1)[:n]
+    fields[:, 1] += REGION * (torch.arange(n) // per)
+    finite = fields.clone()
+    finite[~torch.isfinite(fields).all(1)] = torch.tensor(
+        [0.0, 0.0, 0.0, 0.0, 0.0, 1.0])
+    rest = torch.as_tensor(rng.normal(0, 1, (n, 4 + sem_dim)).astype(
+        np.float32))
+    tiles = 4 * groups
+    cols = ((torch.arange(tiles) // 4 * per)[:, None]
+            + torch.arange(per)).reshape(-1)
+    starts = torch.arange(tiles, dtype=torch.int32) * per
+    return (torch.cat([fields, rest], 1)[cols].T.contiguous().to(device),
+            torch.cat([finite, rest], 1)[cols].T.contiguous().to(device),
+            starts.to(device), (starts + per).to(device))
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_blend_kernels_on_adversarial_splats(cuda, case):
+    """The device cull (csrc/walk.cuh) on the splats its plain twin is
+    held to on the CPU: it drops no pair that the walk would blend, so
+    the forward's and the trace's walked, blended and hit counts equal
+    the plain trace's (transmittance multiplied in the kernels' order)
+    exactly, and the undecidable splats are kept."""
+    feat, finite, starts, ends = _adversarial_tiles(case, 10, cuda)
+    aug = _aug(starts.numel(), 10, 7, cuda)
+    raw = cuda_blend.blend_fwd(feat, starts, ends, 2)
+    traced, rows = cuda_trace.trace_fwd(feat, starts, ends, aug, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, traced)
+    if case == "nan_fields":
+        # each NaN splat blends as its stand-in, which the cull keeps
+        again, again_rows = cuda_trace.trace_fwd(finite, starts, ends, aug, 2)
+        assert torch.equal(raw, again) and torch.equal(rows, again_rows)
+    want_raw, want_rows = cuda_trace.trace_fwd_plain(finite, starts, ends,
+                                                     aug, 2)
+    n = 4 + 10 + 1
+    assert torch.equal(raw[..., n:], want_raw[..., n:])
+    assert torch.equal(rows[:, -1], want_rows[:, -1])
+    torch.testing.assert_close(raw[..., :n], want_raw[..., :n], rtol=5e-5,
+                               atol=5e-5)
+    torch.testing.assert_close(rows, want_rows, rtol=1e-4, atol=1e-4)
+    assert bool((raw[..., -1] > 0).any())
 
 
 @pytest.mark.parametrize("blk,nb,d,masked", [
