@@ -49,10 +49,16 @@ exits non-zero without the final result line:
    against render()'s within 1e-5, num_gsem a multiple of 10 with hits,
    a small scene's trace on the card against the CPU; p50/p95 wall time
    and one profiled call;
-7. [micro] the micro-benchmark (goi_tpu_torch/examples/micro_sortpayload.py)
+7. [widths] the blend, backward and trace kernels at semantic widths
+   1, 12, 33 and 64 (S_MAX; widths between the kernels' instances run
+   padded to the next one) and the trace at lift widths 32, 33, 65 and
+   127 (SA_MAX), on a seeded 100k-Gaussian scene at 1296x968, each
+   against its plain version (counts exactly), and S = 10 padded to the
+   next instance bit-identical to the native one, with times;
+8. [micro] the micro-benchmark (goi_tpu_torch/examples/micro_sortpayload.py)
    at its default sizes; the mono row gather bit-exact against its
    plain version and timed beside torch.index_select;
-8. a JSON line with every ported kernel's launches, error, times and
+9. a JSON line with every ported kernel's launches, error, times and
    bound; then the final JSON line.
 """
 
@@ -106,6 +112,13 @@ N_TRACES = 6        # trace() calls on the main path, cycling the views
 MICRO_ITERS = 5     # steps per figure of the micro-benchmark
 KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "trace",
                   "prefix_boundary", "mono_rows")
+# [widths]: semantic widths between and at the kernels' instances (S_MAX
+# = 64 the widest), lift widths past one warp's 32 lanes (127 = SA_MAX),
+# on a WIDTHS_GAUSS-Gaussian scene at the full frame; S = 10 and sa = 11,
+# the main path's, as the yardstick
+WIDTHS_S = (1, 10, 12, 33, 64)
+WIDTHS_SA = (11, 32, 33, 65, 127)
+WIDTHS_GAUSS = 100_000
 
 
 def log(*a):
@@ -136,7 +149,7 @@ def median_ms(fn, iters=10, warmup=2):
     return float(np.median(times))
 
 
-def make_scene(n, seed, device):
+def make_scene(n, seed, device, sem_dim=SEM_DIM):
     """Seeded synthetic scene at the published widths (SH degree 3,
     10 semantic channels), like the JAX package's bench scene."""
     import torch
@@ -145,7 +158,7 @@ def make_scene(n, seed, device):
     scene = GaussianScene.create(
         rng.normal(0, 1.0, (n, 3)).astype(np.float32),
         rng.uniform(0, 1, (n, 3)).astype(np.float32),
-        sh_degree=3, sem_dim=SEM_DIM,
+        sh_degree=3, sem_dim=sem_dim,
         scales=rng.uniform(0.005, 0.02, n).astype(np.float32),
         device=device)
 
@@ -157,7 +170,7 @@ def make_scene(n, seed, device):
         opacity=scene.opacity + t(rng.normal(0, 1, (n, 1))),
         rotation=t(rng.normal(0, 1, (n, 4))),
         features_rest=t(0.05 * rng.normal(0, 1, (n, 15, 3))),
-        semantics=t(rng.normal(0, 0.3, (n, SEM_DIM))))
+        semantics=t(rng.normal(0, 0.3, (n, sem_dim))))
 
 
 def orbit_cams(width, height, n, device, dist=4.5):
@@ -823,7 +836,8 @@ def check_prefix_boundary(rows, p, blk, label):
     ops_ms = m * d / PEAK_FP32_PER_S * 1e3
     log(f"[kernels] prefix_boundary {label}: rows=({m}, {d}) bounds="
         f"{p.numel()} block={blk}: bit-identical to prefix's inner[p] and "
-        f"totals, max_err vs plain={err:.3e}; kernel {ms:.4f} ms (prefix + "
+        f"totals, max_err vs plain={err:.3e}; kernel {ms:.4f} ms (with its "
+        f"first-bound table; prefix + "
         f"gather {unfused_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
         f"{max(bytes_ms, ops_ms):.4f} ms (bytes); whole reduce: fused "
         f"{fused_red_ms:.4f} ms, unfused {unfused_red_ms:.4f} ms")
@@ -962,6 +976,136 @@ def trace_phase(scene, cams, cfg, stats):
     log(f"[trace] small scene: counts equal card vs CPU "
         f"({int(want['num_gsem'].sum())}), features max diff {e:.2e}")
     return launches
+
+
+def widths_phase():
+    """[widths]: the blend, backward and trace kernels at semantic widths
+    between and at their instances (WIDTHS_S, run padded to the next
+    instance) and the trace at lift widths past one warp (WIDTHS_SA), on
+    a seeded WIDTHS_GAUSS-Gaussian scene at the full frame: each against
+    its plain version at the main path's tolerances, walked, blended and
+    hit counts exactly; S = 10 padded to the next instance bit-identical
+    to the native instance in all three kernels. The scene carries S_MAX
+    channels; a width S takes the first S of them, so the geometry, and
+    with it every count, is the same at every S."""
+    import torch
+    from goi_tpu_torch.raster.cuda_blend import (S_MAX, SEM_DIMS, blend_bwd,
+                                                 blend_bwd_plain, blend_fwd,
+                                                 blend_fwd_plain,
+                                                 kernel_width, pad_feat,
+                                                 pad_raw, unpad_raw,
+                                                 unpad_rows)
+    from goi_tpu_torch.raster.cuda_trace import (SA_MAX, trace_fwd,
+                                                 trace_fwd_plain)
+    from goi_tpu_torch.raster.render import RasterConfig, suggest_budgets
+    if max(WIDTHS_S) != S_MAX or max(WIDTHS_SA) != SA_MAX:
+        raise AssertionError("the phase must reach S_MAX and SA_MAX")
+    scene = make_scene(WIDTHS_GAUSS, seed=11, device="cuda", sem_dim=S_MAX)
+    cam = orbit_cams(WIDTH, HEIGHT, 1, "cuda")[0]
+    mi, _ = suggest_budgets(scene, cam, margin=1.2)
+    f_max, starts, ends, gx = capture_inputs(
+        scene, cam, RasterConfig(max_instances=mi))["blend"]
+    del scene
+    nt = starts.numel()
+
+    def feat_of(s_dim):    # the first s_dim semantic rows, then depth
+        return torch.cat([f_max[:9 + s_dim], f_max[9 + S_MAX:]]).contiguous()
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def aug_of(sa):
+        a = torch.randn((nt, 256, sa), generator=gen, device="cuda")
+        a[..., -1] = 1.0
+        return a
+
+    # the trace at each lift width, at S = S_MAX, against its plain version
+    plain_rows = {}
+    counts = None
+    for sa in WIDTHS_SA:
+        aug = aug_of(sa)
+        raw, rows = trace_fwd(f_max, starts, ends, aug, gx)
+        torch.cuda.synchronize()
+        (ref_raw, ref_rows), plain_ms = timed_ms(
+            lambda: trace_fwd_plain(f_max, starts, ends, aug, gx))
+        n_out = 4 + S_MAX
+        ok_r = torch.allclose(raw[..., :n_out + 1], ref_raw[..., :n_out + 1],
+                              rtol=TOL, atol=TOL)
+        ok_l, err = close_to_peak(rows, ref_rows, *TOL_TRACE)
+        if not (ok_r and ok_l and torch.equal(rows[:, -1], ref_rows[:, -1])
+                and torch.equal(raw[..., -2:], ref_raw[..., -2:])):
+            raise AssertionError(f"[widths] trace sa={sa}: kernel differs "
+                                 f"from plain (rows max err {err})")
+        counts = ref_raw[..., -2:]
+        plain_rows[sa] = (aug, ref_rows)
+        ms = median_ms(lambda: trace_fwd(f_max, starts, ends, aug, gx))
+        log(f"[widths] trace S={S_MAX} sa={sa}: rows max_err={err:.3e}, hit, "
+            f"walked and blended counts equal to the plain version's; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    del ref_raw, raw
+    aug, ref_rows = plain_rows[33]
+    for s_dim in WIDTHS_S:
+        feat = feat_of(s_dim)
+        raw = blend_fwd(feat, starts, ends, gx)
+        ref = blend_fwd_plain(feat, starts, ends, gx)
+        torch.cuda.synchronize()
+        n_out = 4 + s_dim
+        err_f = float((raw[..., :n_out + 1] - ref[..., :n_out + 1])
+                      .abs().max())
+        if not torch.allclose(raw[..., :n_out + 1], ref[..., :n_out + 1],
+                              rtol=TOL, atol=TOL) \
+                or not torch.equal(raw[..., -2:], counts):
+            raise AssertionError(f"[widths] blend_fwd S={s_dim}: {err_f}, "
+                                 f"or counts differ")
+        grad = torch.randn(raw.shape, generator=gen, device="cuda")
+        rows = blend_bwd(feat, starts, ends, raw, grad, gx)
+        ref = blend_bwd_plain(feat, starts, ends, raw, grad, gx)
+        torch.cuda.synchronize()
+        ok_b, err_b = close_to_peak(rows, ref, *TOL_BWD)
+        if not ok_b:
+            raise AssertionError(f"[widths] blend_bwd S={s_dim}: {err_b}")
+        traw, trows = trace_fwd(feat, starts, ends, aug, gx)
+        torch.cuda.synchronize()
+        ok_t, err_t = close_to_peak(trows, ref_rows, *TOL_TRACE)
+        if not (torch.equal(traw, raw) and ok_t
+                and torch.equal(trows[:, -1], ref_rows[:, -1])):
+            raise AssertionError(f"[widths] trace S={s_dim}: raw differs "
+                                 f"from blend_fwd's or rows {err_t}")
+        del ref, traw, trows
+        times = [median_ms(fn, iters=5) for fn in (
+            lambda: blend_fwd(feat, starts, ends, gx),
+            lambda: blend_bwd(feat, starts, ends, raw, grad, gx),
+            lambda: trace_fwd(feat, starts, ends, aug, gx))]
+        log(f"[widths] S={s_dim} (instance {kernel_width(s_dim)}): blend_fwd "
+            f"max_err={err_f:.3e} counts equal, blend_bwd max_err={err_b:.3e}"
+            f", trace raw bit-identical to blend_fwd's, rows max_err="
+            f"{err_t:.3e}, hits equal; kernel ms blend_fwd {times[0]:.4f}, "
+            f"blend_bwd {times[1]:.4f}, trace (sa=33) {times[2]:.4f}")
+    # S = 10 padded with zero rows to the next instance, as the wrappers
+    # pad a width between instances, and sliced back: the native bits
+    feat = feat_of(SEM_DIM)
+    width = next(w for w in SEM_DIMS if w > SEM_DIM)
+    wide = pad_feat(feat, width)
+    raw = blend_fwd(feat, starts, ends, gx)
+    grad = torch.randn(raw.shape, generator=gen, device="cuda")
+    aug = plain_rows[32][0]
+    traw, trows = trace_fwd(wide, starts, ends, aug, gx)
+    pairs = [(raw, unpad_raw(blend_fwd(wide, starts, ends, gx), SEM_DIM,
+                             width)),
+             (blend_bwd(feat, starts, ends, raw, grad, gx),
+              unpad_rows(blend_bwd(wide, starts, ends,
+                                   pad_raw(raw, SEM_DIM, width),
+                                   pad_raw(grad, SEM_DIM, width), gx),
+                         SEM_DIM, width))]
+    pairs += list(zip(trace_fwd(feat, starts, ends, aug, gx),
+                      (unpad_raw(traw, SEM_DIM, width), trows)))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"[widths] S={SEM_DIM} padded to {width} "
+                             f"differs from the native instance")
+    log(f"[widths] S={SEM_DIM} padded to the {width} instance: blend_fwd "
+        f"(counts included), blend_bwd and trace (raw and rows) "
+        f"bit-identical to the native instance; {nt} tiles, "
+        f"M={f_max.shape[1]}")
 
 
 def micro_phase(stats):
@@ -1132,10 +1276,13 @@ def main() -> int:
                 for k in set(launches) | set(trace_launches)}
     del scene
 
-    # ---- 7. the micro-benchmark ----
+    # ---- 7. the kernels at other widths ----
+    widths_phase()
+
+    # ---- 8. the micro-benchmark ----
     launches.update(micro_phase(stats))
 
-    # ---- 8. kernels line, result ----
+    # ---- 9. kernels line, result ----
     kernels = [
         dict(name="expand_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",
@@ -1162,6 +1309,8 @@ def main() -> int:
              source="goi_tpu_torch/raster/csrc/prefix_boundary.cu",
              replaces="goi_tpu/raster/pallas_blend.py:392",
              launches=launches["prefix_boundary"],
+             note="launches count the prefix kernel; each call also "
+                  "launches first_bounds_kernel once, and ms include it",
              **stats["prefix_boundary"]),
         dict(name="mono_rows", route="cuda",
              source="goi_tpu_torch/raster/csrc/mono_rows.cu",

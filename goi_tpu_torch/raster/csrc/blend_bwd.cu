@@ -64,7 +64,13 @@
 //   allocates with torch.empty.
 // Shared memory per CTA: features NF x 256, gradients 256 x GS, staged
 // (w, dpow) SUB x 256, ballots SUB x 8: 73.7 KB at S = 10, so 3 CTAs
-// (24 warps) per SM; 2 at S = 16.
+// (24 warps) per SM; 2 at S = 16 and 32; 1 at S = 64 (175 KB).
+// Widths: the owner warp sums a row's 10 + S fields in groups of 32, one
+// transpose-reduction per group, the geometric terms in the first; S in
+// {0, 3, 8, 10, 16} take one group, S = 32 and 64 (the wrapper pads other
+// widths up to S_MAX = 64 with zero rows, whose gradients are zero and
+// dropped) two and three. Each field's sum has the same order as in a
+// narrower instance, so padded channels change no other bits.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -148,11 +154,83 @@ __device__ __forceinline__ void zero_rows(float* rows, int nf, long long lo,
   for (long long e = lo * nf + first; e < hi * nf; e += step) rows[e] = 0.f;
 }
 
+// The owner warp's row of NF fields, group GRP of 32 fields at a time
+// (one group up to S = 16): lane l sums pixel l of every warp group whose
+// ballot is set (the first group: dpow dx, dpow dy, dpow dx^2, dpow dx dy,
+// dpow dy^2, dpow, then w g_c), then one transpose-reduction leaves field
+// GRP * 32 + l on lane l; the first group combines its lanes 0 and 1 (the
+// mean sums) with the instance's conic into the geometric terms.
+template <int NF, int GRP>
+__device__ __forceinline__ void reduce_fields(
+    const unsigned (&group)[WARPS], const float2* wd_j, const float* gsh,
+    int gs, const float* fsh, int k, float xj, float yj, float tx0,
+    float ty0, int lane, float* out) {
+  constexpr int NOUT = NF - 6;
+  constexpr int F0 = GRP * 32;                 // first field of the group
+  constexpr int LIVE = NF - F0 < 32 ? NF - F0 : 32;
+  float v[32];
+#pragma unroll
+  for (int f = 0; f < 32; ++f) v[f] = 0.f;
+#pragma unroll
+  for (int gw = 0; gw < WARPS; ++gw) {
+    if (!group[gw]) continue;
+    const int q = gw * 32 + lane;
+    const float2 e = wd_j[q];
+    if constexpr (GRP == 0) {
+      const float dx = xj - (tx0 + (float)((gw & 1) * 8 + (lane & 7)));
+      const float dy = yj - (ty0 + (float)((gw >> 1) * 4 + (lane >> 3)));
+      const float pdx = e.y * dx;
+      const float pdy = e.y * dy;
+      v[0] += pdx;
+      v[1] += pdy;
+      v[2] += pdx * dx;
+      v[3] += pdx * dy;
+      v[4] += pdy * dy;
+      v[5] += e.y;
+    }
+    const float4* gq = reinterpret_cast<const float4*>(gsh + q * gs);
+#pragma unroll
+    for (int c4 = 0; c4 < (NOUT + 3) / 4; ++c4) {
+      // channel c is field 6 + c: only this group's are read
+      if (6 + c4 * 4 + 3 < F0 || 6 + c4 * 4 >= F0 + LIVE) continue;
+      const float4 gg = gq[c4];
+      const float gv[4] = {gg.x, gg.y, gg.z, gg.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int f = 6 + c4 * 4 + i;
+        if (c4 * 4 + i < NOUT && f >= F0 && f < F0 + LIVE)
+          v[f - F0] += e.x * gv[i];
+      }
+    }
+  }
+  const float s = warp_transpose_sum<LIVE>(v, lane);
+  if constexpr (GRP == 0) {
+    const float sx = __shfl_sync(FULL, s, 0);
+    const float sy = __shfl_sync(FULL, s, 1);
+    const float ca = fsh[2 * BATCH + k];
+    const float cb = fsh[3 * BATCH + k];
+    const float cc = fsh[4 * BATCH + k];
+    const float opa = fsh[5 * BATCH + k];
+    float r = s;
+    if (lane == 0) r = -(ca * sx + cb * sy);
+    if (lane == 1) r = -(cc * sy + cb * sx);
+    if (lane == 2 || lane == 4) r = -0.5f * s;
+    if (lane == 3) r = -s;
+    if (lane == 5) r = opa > 0.f ? s / opa : 0.f;
+    if (lane < LIVE) out[lane] = r;
+  } else {
+    if (lane < LIVE) out[F0 + lane] = s;
+  }
+  if constexpr (F0 + 32 < NF)
+    reduce_fields<NF, GRP + 1>(group, wd_j, gsh, gs, fsh, k, xj, yj, tx0,
+                               ty0, lane, out);
+}
+
 // feat rows: 0 x, 1 y, 2 conic a, 3 conic b, 4 conic c, 5 opacity,
 // 6..8 rgb, 9..8+S semantics, 9+S depth. raw and grad per pixel: 4+S
 // sums, T, walked, blended (the gradient of the counts is ignored).
 template <int S>
-__global__ void __launch_bounds__(PIX, S <= 10 ? 3 : 2)
+__global__ void __launch_bounds__(PIX, S <= 10 ? 3 : (S <= 32 ? 2 : 1))
 blend_bwd_kernel(const float* __restrict__ feat, long long m,
                  const int* __restrict__ starts,
                  const int* __restrict__ ends, int num_tiles, int grid_x,
@@ -163,7 +241,6 @@ blend_bwd_kernel(const float* __restrict__ feat, long long m,
   constexpr int NOUT = 4 + S;
   constexpr int OUTC = NOUT + 3;
   constexpr int GS = grad_stride(NOUT);
-  static_assert(NF <= 32, "one gradient field per lane");
   extern __shared__ float4 smem4[];
   float* fsh = reinterpret_cast<float*>(smem4);          // [NF][BATCH]
   float* gsh = fsh + NF * BATCH;                         // [PIX][GS]
@@ -285,59 +362,13 @@ blend_bwd_kernel(const float* __restrict__ feat, long long m,
         const unsigned group[WARPS] = {b0.x, b0.y, b0.z, b0.w,
                                        b1.x, b1.y, b1.z, b1.w};
         if (!(b0.x | b0.y | b0.z | b0.w | b1.x | b1.y | b1.z | b1.w)) {
-          if (lane < NF) out[lane] = 0.f;
+          for (int f = lane; f < NF; f += 32) out[f] = 0.f;
           continue;
         }
         const float xj = fsh[k];
         const float yj = fsh[BATCH + k];
-        // per lane: sums of dpow dx, dpow dy, dpow dx^2, dpow dx dy,
-        // dpow dy^2, dpow, then w g_c
-        float v[32];
-#pragma unroll
-        for (int f = 0; f < 32; ++f) v[f] = 0.f;
-#pragma unroll
-        for (int gw = 0; gw < WARPS; ++gw) {
-          if (!group[gw]) continue;
-          const int q = gw * 32 + lane;
-          const float2 e = wd[j * PIX + q];
-          const float dx = xj - (tx0 + (float)((gw & 1) * 8 + (lane & 7)));
-          const float dy = yj - (ty0 + (float)((gw >> 1) * 4 + (lane >> 3)));
-          const float pdx = e.y * dx;
-          const float pdy = e.y * dy;
-          v[0] += pdx;
-          v[1] += pdy;
-          v[2] += pdx * dx;
-          v[3] += pdx * dy;
-          v[4] += pdy * dy;
-          v[5] += e.y;
-          const float4* gq = reinterpret_cast<const float4*>(gsh + q * GS);
-#pragma unroll
-          for (int c4 = 0; c4 < (NOUT + 3) / 4; ++c4) {
-            const float4 gg = gq[c4];
-            const float gv[4] = {gg.x, gg.y, gg.z, gg.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (c4 * 4 + i < NOUT) v[6 + c4 * 4 + i] += e.x * gv[i];
-          }
-        }
-        const float s = warp_transpose_sum<NF>(v, lane);
-        // lanes 0-5 hold the sums above; the row's geometric terms
-        // combine them with the instance's conic
-        const float sx = __shfl_sync(FULL, s, 0);
-        const float sy = __shfl_sync(FULL, s, 1);
-        if (lane < NF) {
-          const float ca = fsh[2 * BATCH + k];
-          const float cb = fsh[3 * BATCH + k];
-          const float cc = fsh[4 * BATCH + k];
-          const float opa = fsh[5 * BATCH + k];
-          float r = s;
-          if (lane == 0) r = -(ca * sx + cb * sy);
-          if (lane == 1) r = -(cc * sy + cb * sx);
-          if (lane == 2 || lane == 4) r = -0.5f * s;
-          if (lane == 3) r = -s;
-          if (lane == 5) r = opa > 0.f ? s / opa : 0.f;
-          out[lane] = r;
-        }
+        reduce_fields<NF, 0>(group, wd + j * PIX, gsh, GS, fsh, k, xj, yj,
+                             tx0, ty0, lane, out);
       }
       cur = base + s0 + ns;
     }
@@ -364,7 +395,8 @@ int launch(const float* feat, long long m, const int* starts,
 }  // namespace
 
 // Semantic widths the library is built for (those of blend_fwd.cu); the
-// Python wrapper raises on any other before calling. feat is (10 + S, m)
+// Python wrapper pads any other width up to one of them and raises above
+// the widest before calling. feat is (10 + S, m)
 // and rows (m, 10 + S): every row is written, so rows may be
 // uninitialised.
 extern "C" int goi_blend_bwd(int s_dim, const void* feat, long long m,
@@ -390,6 +422,10 @@ extern "C" int goi_blend_bwd(int s_dim, const void* feat, long long m,
       case 10: err = launch<10>(f, m, s, e, num_tiles, grid_x, r, g, o, st);
         break;
       case 16: err = launch<16>(f, m, s, e, num_tiles, grid_x, r, g, o, st);
+        break;
+      case 32: err = launch<32>(f, m, s, e, num_tiles, grid_x, r, g, o, st);
+        break;
+      case 64: err = launch<64>(f, m, s, e, num_tiles, grid_x, r, g, o, st);
         break;
       default: return (int)cudaErrorInvalidValue;
     }

@@ -1,5 +1,7 @@
 // Block-local exclusive row scan, shared by csrc/prefix.cu and
-// csrc/prefix_boundary.cu so that both produce the same bits.
+// csrc/prefix_boundary.cu so that both produce the same bits
+// (prefix_boundary.cu loads the rows its own way and calls
+// scan_columns).
 //
 // A block of `blk` rows of a row-major (blk, d) float32 matrix goes
 // through shared memory column-major with a skew: column c, row r at
@@ -23,29 +25,25 @@ __host__ __device__ inline size_t smem_bytes(int d, int blk) {
   return sizeof(float) * (size_t)d * (size_t)(blk + 33);
 }
 
+// RUN = blk / 32 when the caller knows it at compile time (the skew's
+// division becomes a shift, the scan's loops have a constant trip count
+// and unroll; the same order of sums), 0 otherwise.
+template <int RUN = 0>
 __device__ __forceinline__ int slot(int r, int c, int blk) {
-  return c * (blk + 33) + r + r / (blk / 32);
+  const int run = RUN > 0 ? RUN : blk / 32;
+  return c * (blk + 33) + r + r / run;
 }
 
-// Loads the block's rows (scaled by okf[r] when okf is not null) into
-// sh, replaces them by their exclusive prefix and writes the block's
-// column totals to tot (d floats). Every thread of the block must call
-// it; it ends with a barrier, after which sh holds the prefix.
-__device__ __forceinline__ void exclusive_scan(const float* __restrict__ in,
-                                               const float* __restrict__ okf,
-                                               int d, int blk, float* sh,
-                                               float* __restrict__ tot) {
+// Replaces the block's rows, loaded into sh at slot(r, c, blk), by their
+// exclusive prefix and writes the block's column totals to tot (d
+// floats). Every thread of the block must call it after a barrier that
+// follows the loads; it ends with a barrier, after which sh holds the
+// prefix.
+template <int RUN = 0>
+__device__ __forceinline__ void scan_columns(int d, int blk, float* sh,
+                                             float* __restrict__ tot) {
   const int tid = threadIdx.x;
-  const int n = blk * d;
-  const int run = blk / 32;
-  for (int e = tid; e < n; e += THREADS) {
-    const int r = e / d;
-    const int c = e - r * d;
-    float x = in[e];
-    if (okf != nullptr) x *= okf[r];
-    sh[slot(r, c, blk)] = x;
-  }
-  __syncthreads();
+  const int run = RUN > 0 ? RUN : blk / 32;
   const int lane = tid & 31;
   for (int c = tid >> 5; c < d; c += THREADS / 32) {
     float* col = sh + c * (blk + 33) + lane * (run + 1);
@@ -67,6 +65,27 @@ __device__ __forceinline__ void exclusive_scan(const float* __restrict__ in,
     if (lane == 31) tot[c] = acc;
   }
   __syncthreads();
+}
+
+// Loads the block's rows (scaled by okf[r] when okf is not null) into
+// sh, replaces them by their exclusive prefix and writes the block's
+// column totals to tot (d floats). Every thread of the block must call
+// it; it ends with a barrier, after which sh holds the prefix.
+__device__ __forceinline__ void exclusive_scan(const float* __restrict__ in,
+                                               const float* __restrict__ okf,
+                                               int d, int blk, float* sh,
+                                               float* __restrict__ tot) {
+  const int tid = threadIdx.x;
+  const int n = blk * d;
+  for (int e = tid; e < n; e += THREADS) {
+    const int r = e / d;
+    const int c = e - r * d;
+    float x = in[e];
+    if (okf != nullptr) x *= okf[r];
+    sh[slot(r, c, blk)] = x;
+  }
+  __syncthreads();
+  scan_columns(d, blk, sh, tot);
 }
 
 }  // namespace goi_scan

@@ -50,12 +50,18 @@
 //   tile's range (positions no tile holds; the ranges tile [0, ends[T-1])
 //   in order, as the binning gives them) by extra zeroing blocks, so the
 //   wrapper allocates with torch.empty.
+// - past 32 fields (sa up to SA_MAX = 127: 126 channels and the ones
+//   channel) the owner warp lifts in groups of 32 fields, one
+//   transpose-reduction a group; sa <= 16 and sa <= 32 keep their
+//   one-transpose paths.
 // Shared memory per CTA: features (NF + 4) x 256, a 256 x (sa | 1),
 // ballots 8 x 256, the warps' cull lists 8 x 256 bytes: 45 KB at
-// S = 10, sa = 11. Lane = pixel with one transpose per instance beat
-// lane = field looping over the set bits, and at sa = 11 the 16-field
-// transpose beat the 32-field one by 1.6 ms on the H100, likely by its
-// fewer registers (PERF.md). Built with -fmad=false, as the forward.
+// S = 10, sa = 11; 215 KB at S = 64, sa = 127, the widest the wrapper
+// takes (S_MAX = 64 in raster/cuda_blend.py). Lane = pixel with one
+// transpose per instance beat lane = field looping over the set bits,
+// and at sa = 11 the 16-field transpose beat the 32-field one by 1.6 ms
+// on the H100, likely by its fewer registers (PERF.md). Built with
+// -fmad=false, as the forward.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -66,7 +72,8 @@ namespace {
 
 using namespace walk;
 
-constexpr int MAX_SA = 32;          // lifted fields: one per lane
+constexpr int SA_MAX = 127;         // lifted fields, in groups of 32
+constexpr int WIDE = 0;             // CAP of the grouped path
 constexpr int TAIL_BLOCKS = 264;    // blocks that zero the untiled rows
 constexpr float HIT_ALPHA = 0.005f;
 
@@ -116,7 +123,8 @@ __device__ __forceinline__ void zero_rows(float* rows, int sa, long long lo,
 }
 
 // feat (NF, m) packed instances; aug (T, 256, sa) per pixel; out per
-// pixel: 4+S sums, T, walked, blended; rows (m, sa).
+// pixel: 4+S sums, T, walked, blended; rows (m, sa). CAP: 16 or 32
+// fields in one transpose (sa <= CAP), or WIDE: groups of 32.
 template <int S, int CAP>
 __global__ void __launch_bounds__(PIX)
 trace_kernel(const float* __restrict__ feat, long long m,
@@ -203,23 +211,42 @@ trace_kernel(const float* __restrict__ feat, long long m,
         any |= group[g];
       }
       if (!any) {
-        if (lane < sa) o[lane] = 0.f;
+        for (int f = lane; f < sa; f += 32) o[f] = 0.f;
         continue;
       }
-      float v[CAP];
+      if constexpr (CAP == WIDE) {
+        for (int f0 = 0; f0 < sa; f0 += 32) {
+          float v[32];
 #pragma unroll
-      for (int c = 0; c < CAP; ++c) v[c] = 0.f;
+          for (int c = 0; c < 32; ++c) v[c] = 0.f;
 #pragma unroll
-      for (int g = 0; g < WARPS; ++g) {
-        if ((group[g] >> lane) & 1u) {
-          const float* a = ash + (g * 32 + lane) * astride;
+          for (int g = 0; g < WARPS; ++g) {
+            if ((group[g] >> lane) & 1u) {
+              const float* a = ash + (g * 32 + lane) * astride + f0;
 #pragma unroll
-          for (int c = 0; c < CAP; ++c)
-            if (c < sa) v[c] += a[c];
+              for (int c = 0; c < 32; ++c)
+                if (f0 + c < sa) v[c] += a[c];
+            }
+          }
+          const float s = warp_field_sum<32>(v, lane);
+          if (f0 + lane < sa) o[f0 + lane] = s;
         }
+      } else {
+        float v[CAP];
+#pragma unroll
+        for (int c = 0; c < CAP; ++c) v[c] = 0.f;
+#pragma unroll
+        for (int g = 0; g < WARPS; ++g) {
+          if ((group[g] >> lane) & 1u) {
+            const float* a = ash + (g * 32 + lane) * astride;
+#pragma unroll
+            for (int c = 0; c < CAP; ++c)
+              if (c < sa) v[c] += a[c];
+          }
+        }
+        const float s = warp_field_sum<CAP>(v, lane);
+        if (lane < sa) o[lane] = s;
       }
-      const float s = warp_field_sum<CAP>(v, lane);
-      if (lane < sa) o[lane] = s;
     }
     cur = base + n;
   }
@@ -236,7 +263,7 @@ int launch(const float* feat, long long m, const int* starts,
   // the attribute belongs to the current device: set it on every launch
   const cudaError_t err = cudaFuncSetAttribute(
       trace_kernel<S, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<S>(MAX_SA));
+      (int)smem_bytes<S>(CAP == WIDE ? SA_MAX : 32));
   if (err != cudaSuccess) return (int)err;
   trace_kernel<S, CAP><<<TAIL_BLOCKS + num_tiles, PIX, smem_bytes<S>(sa),
                          stream>>>(feat, m, starts, ends, num_tiles, grid_x,
@@ -248,23 +275,28 @@ template <int S>
 int launch_lift(const float* feat, long long m, const int* starts,
                 const int* ends, int num_tiles, int grid_x, const float* aug,
                 int sa, float* out, float* rows, cudaStream_t stream) {
-  return sa <= 16 ? launch<S, 16>(feat, m, starts, ends, num_tiles, grid_x,
-                                  aug, sa, out, rows, stream)
-                  : launch<S, 32>(feat, m, starts, ends, num_tiles, grid_x,
-                                  aug, sa, out, rows, stream);
+  if (sa <= 16)
+    return launch<S, 16>(feat, m, starts, ends, num_tiles, grid_x, aug, sa,
+                         out, rows, stream);
+  if (sa <= 32)
+    return launch<S, 32>(feat, m, starts, ends, num_tiles, grid_x, aug, sa,
+                         out, rows, stream);
+  return launch<S, WIDE>(feat, m, starts, ends, num_tiles, grid_x, aug, sa,
+                         out, rows, stream);
 }
 
 }  // namespace
 
-// Semantic widths of the render (those of blend_fwd.cu) and 1..32 lifted
-// fields; the Python wrapper raises on any other before calling. feat is
+// Semantic widths of the render (those of blend_fwd.cu) and 1..SA_MAX
+// lifted fields; the Python wrapper pads other semantic widths up to one
+// of them and raises on any other lift width before calling. feat is
 // (10 + S, m) and rows (m, sa): every row is written, so rows may be
 // uninitialised.
 extern "C" int goi_trace_fwd(int s_dim, const void* feat, long long m,
                              const void* starts, const void* ends,
                              int num_tiles, int grid_x, const void* aug,
                              int sa, void* out, void* rows, void* stream) {
-  if (sa < 1 || sa > MAX_SA) return (int)cudaErrorInvalidValue;
+  if (sa < 1 || sa > SA_MAX) return (int)cudaErrorInvalidValue;
   const float* f = static_cast<const float*>(feat);
   const int* s = static_cast<const int*>(starts);
   const int* e = static_cast<const int*>(ends);
@@ -287,6 +319,10 @@ extern "C" int goi_trace_fwd(int s_dim, const void* feat, long long m,
       case 10: err = launch_lift<10>(f, m, s, e, n, grid_x, a, sa, o, r, st);
         break;
       case 16: err = launch_lift<16>(f, m, s, e, n, grid_x, a, sa, o, r, st);
+        break;
+      case 32: err = launch_lift<32>(f, m, s, e, n, grid_x, a, sa, o, r, st);
+        break;
+      case 64: err = launch_lift<64>(f, m, s, e, n, grid_x, a, sa, o, r, st);
         break;
       default: return (int)cudaErrorInvalidValue;
     }

@@ -22,6 +22,14 @@ semantics and depth.
 
 The TPU layout's 8-row padding, +K tail columns and transported
 Gaussian-id row were Mosaic DMA workarounds and are not packed here.
+
+Semantic widths: the kernels are built for S in SEM_DIMS. Any other S up
+to S_MAX runs the next wider instance on a copy padded with zero
+semantic rows (`pad_feat`, `pad_raw`), whose outputs are sliced back
+(`unpad_raw`, `unpad_rows`): the padded channels are zero and add
+nothing, so the real channels and the counts are the bits an instance of
+S's own width would give. Above S_MAX a CUDA tensor raises; the plain
+versions and RasterConfig(backend="reference") take any width.
 """
 
 from __future__ import annotations
@@ -39,7 +47,10 @@ from goi_tpu_torch.raster.reference import ALPHA_CLAMP, T_EPS
 
 K = 256            # instances per chunk: the chunked layout's walk unit
 PIX = TILE * TILE
-SEM_DIMS = (0, 3, 8, 10, 16)   # template instances in csrc/blend_*.cu
+SEM_DIMS = (0, 3, 8, 10, 16, 32, 64)   # template instances in
+                                       # csrc/blend_*.cu and trace.cu
+S_MAX = SEM_DIMS[-1]   # widest S the kernels take (blend_bwd.cu's tile
+                       # needs 175 KB of shared memory at S = 64)
 # tiles per step of the plain version: bounds its (tiles, 256, K)
 # temporaries to a few hundred MB
 PLAIN_TILE_BATCH = 128
@@ -108,12 +119,57 @@ def blend_fwd_plain(feat, starts, ends, grid_x: int):
     return out
 
 
+def kernel_width(s_dim: int) -> int:
+    """The kernel instance that runs semantic width s_dim: the narrowest
+    in SEM_DIMS that holds it. Raises ValueError above S_MAX."""
+    if not 0 <= s_dim <= S_MAX:
+        raise ValueError(
+            f"the CUDA kernels take sem_dim 0..{S_MAX} (S_MAX), got "
+            f"{s_dim}; use RasterConfig(backend=\"reference\") for wider "
+            f"semantics")
+    return next(w for w in SEM_DIMS if w >= s_dim)
+
+
+def pad_feat(feat: torch.Tensor, width: int) -> torch.Tensor:
+    """(10 + S, M) packed features -> (10 + width, M) with zero semantic
+    rows 9 + S .. 9 + width - 1 (depth moves to row 9 + width)."""
+    s = feat.shape[0] - 10
+    if width == s:
+        return feat
+    return torch.cat([feat[:9 + s],
+                      feat.new_zeros((width - s, feat.shape[1])),
+                      feat[9 + s:]])
+
+
+def pad_raw(raw: torch.Tensor, s_dim: int, width: int) -> torch.Tensor:
+    """(T, 256, S + 7) raw output (or its gradient) -> (T, 256, width + 7)
+    with zero semantic channels 3 + S .. 3 + width - 1."""
+    if width == s_dim:
+        return raw
+    return torch.cat([raw[..., :3 + s_dim],
+                      raw.new_zeros(raw.shape[:-1] + (width - s_dim,)),
+                      raw[..., 3 + s_dim:]], dim=-1)
+
+
+def unpad_raw(raw: torch.Tensor, s_dim: int, width: int) -> torch.Tensor:
+    """pad_raw's inverse: drop semantic channels 3 + S .. 3 + width - 1."""
+    if width == s_dim:
+        return raw
+    return torch.cat([raw[..., :3 + s_dim], raw[..., 3 + width:]], dim=-1)
+
+
+def unpad_rows(rows: torch.Tensor, s_dim: int, width: int) -> torch.Tensor:
+    """(M, 10 + width) backward rows -> (M, 10 + S): drop the padded
+    semantic fields 9 + S .. 9 + width - 1."""
+    if width == s_dim:
+        return rows
+    return torch.cat([rows[:, :9 + s_dim], rows[:, 9 + width:]], dim=1)
+
+
 def _check_kernel_inputs(feat, starts, ends, *more) -> int:
     """The checks both blend wrappers make before a launch; returns S."""
     s_dim = feat.shape[0] - 10
-    if s_dim not in SEM_DIMS:
-        raise ValueError(f"the CUDA blend is built for sem_dim in "
-                         f"{SEM_DIMS}, got {s_dim}")
+    kernel_width(s_dim)
     if feat.dtype != torch.float32 or starts.dtype != torch.int32 \
             or ends.dtype != torch.int32 \
             or any(t.dtype != torch.float32 for t in more):
@@ -132,19 +188,20 @@ def blend_fwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     if not _nvcc.is_cuda(feat):
         return blend_fwd_plain(feat, starts, ends, grid_x)
     s_dim = _check_kernel_inputs(feat, starts, ends)
+    width = kernel_width(s_dim)
     lib = _nvcc.library("blend_fwd", _SIGNATURES)
-    feat = feat.contiguous()
+    feat = pad_feat(feat, width).contiguous()
     starts = starts.contiguous()
     ends = ends.contiguous()
     num_tiles = starts.shape[0]
-    out = torch.empty((num_tiles, PIX, s_dim + 7), dtype=torch.float32,
+    out = torch.empty((num_tiles, PIX, width + 7), dtype=torch.float32,
                       device=feat.device)
     _nvcc.check(lib.goi_blend_fwd(
-        s_dim, feat.data_ptr(), feat.shape[1], starts.data_ptr(),
+        width, feat.data_ptr(), feat.shape[1], starts.data_ptr(),
         ends.data_ptr(), num_tiles, grid_x, out.data_ptr(),
         _nvcc.stream()), "blend_fwd")
     blend_fwd.launches += 1
-    return out
+    return unpad_raw(out, s_dim, width)
 
 
 blend_fwd.launches = 0
@@ -222,26 +279,27 @@ def blend_bwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     if not _nvcc.is_cuda(feat):
         return blend_bwd_plain(feat, starts, ends, raw, grad, grid_x)
     s_dim = _check_kernel_inputs(feat, starts, ends, raw, grad)
+    width = kernel_width(s_dim)
     num_tiles = starts.shape[0]
     if raw.shape != (num_tiles, PIX, s_dim + 7) or raw.shape != grad.shape:
         raise ValueError(f"raw and grad of shape {(num_tiles, PIX, s_dim + 7)}"
                          f" expected, got {tuple(raw.shape)} and "
                          f"{tuple(grad.shape)}")
     lib = _nvcc.library("blend_bwd", _BWD_SIGNATURES)
-    feat = feat.contiguous()
+    feat = pad_feat(feat, width).contiguous()
     starts = starts.contiguous()
     ends = ends.contiguous()
-    raw = raw.contiguous()
-    grad = grad.contiguous()
+    raw = pad_raw(raw, s_dim, width).contiguous()
+    grad = pad_raw(grad, s_dim, width).contiguous()
     # the kernel writes every row, zeros where no pixel blends
     rows = torch.empty((feat.shape[1], feat.shape[0]), dtype=torch.float32,
                        device=feat.device)
     _nvcc.check(lib.goi_blend_bwd(
-        s_dim, feat.data_ptr(), feat.shape[1], starts.data_ptr(),
+        width, feat.data_ptr(), feat.shape[1], starts.data_ptr(),
         ends.data_ptr(), num_tiles, grid_x, raw.data_ptr(), grad.data_ptr(),
         rows.data_ptr(), _nvcc.stream()), "blend_bwd")
     blend_bwd.launches += 1
-    return rows
+    return unpad_rows(rows, s_dim, width)
 
 
 blend_bwd.launches = 0

@@ -9,6 +9,10 @@ alpha > 0.005 of the pixel's augmented feature [img (S_img), 1]; the
 caller zeroes that vector outside the image, so the ones channel counts
 hits inside the frame only. raster/render.py `trace` sums the rows per
 Gaussian with raster/reduce.py.
+
+Widths: the render's semantic width as raster/cuda_blend.py (padded up
+to a kernel instance, S_MAX at most); the lift takes sa = S_img + 1 up
+to SA_MAX fields on a CUDA tensor, and any sa in the plain version.
 """
 
 from __future__ import annotations
@@ -20,11 +24,14 @@ import torch
 from goi_tpu_torch.raster import _nvcc
 from goi_tpu_torch.raster.blend import _tile_pixel_coords, pair_alpha
 from goi_tpu_torch.raster.cuda_blend import (K, PIX, PLAIN_TILE_BATCH,
-                                             _check_kernel_inputs)
+                                             _check_kernel_inputs,
+                                             kernel_width, pad_feat,
+                                             unpad_raw)
 from goi_tpu_torch.raster.reference import T_EPS
 
 HIT_ALPHA = 0.005     # strict: a blended instance lifts iff alpha > this
-MAX_LIFT = 32         # lifted fields per row (S_img + 1): one warp's lanes
+SA_MAX = 127          # lifted fields per row (S_img + 1) on the card: 126
+                      # channels, as the JAX package's pallas trace
 
 _SIGNATURES = {"goi_trace_fwd": [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -33,15 +40,11 @@ _SIGNATURES = {"goi_trace_fwd": [
 
 
 def _check_lift_width(aug: torch.Tensor, num_tiles: int) -> int:
-    if aug.dim() != 3 or aug.shape[:2] != (num_tiles, PIX):
+    if aug.dim() != 3 or aug.shape[:2] != (num_tiles, PIX) \
+            or aug.shape[-1] < 1:
         raise ValueError(f"aug of shape ({num_tiles}, {PIX}, S_img + 1) "
                          f"expected, got {tuple(aug.shape)}")
-    sa = aug.shape[-1]
-    if not 1 <= sa <= MAX_LIFT:
-        raise ValueError(f"the trace kernel lifts 0..{MAX_LIFT - 1} feature "
-                         f"channels (S_img + 1 <= {MAX_LIFT} lanes), got "
-                         f"S_img = {sa - 1}")
-    return sa
+    return aug.shape[-1]
 
 
 def trace_fwd_plain(feat, starts, ends, aug, grid_x: int):
@@ -120,22 +123,28 @@ def trace_fwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     if not _nvcc.is_cuda(feat):
         return trace_fwd_plain(feat, starts, ends, aug, grid_x)
     s_dim = _check_kernel_inputs(feat, starts, ends, aug)
+    width = kernel_width(s_dim)
+    if sa > SA_MAX:
+        raise ValueError(
+            f"the trace kernel lifts 0..{SA_MAX - 1} feature channels "
+            f"(S_img + 1 <= SA_MAX = {SA_MAX}), got S_img = {sa - 1}; use "
+            f"RasterConfig(backend=\"reference\") for wider maps")
     lib = _nvcc.library("trace", _SIGNATURES)
-    feat = feat.contiguous()
+    feat = pad_feat(feat, width).contiguous()
     starts = starts.contiguous()
     ends = ends.contiguous()
     aug = aug.contiguous()
-    out = torch.empty((num_tiles, PIX, s_dim + 7), dtype=torch.float32,
+    out = torch.empty((num_tiles, PIX, width + 7), dtype=torch.float32,
                       device=feat.device)
     # the kernel writes every row, zeros where no pixel hits
     rows = torch.empty((feat.shape[1], sa), dtype=torch.float32,
                        device=feat.device)
     _nvcc.check(lib.goi_trace_fwd(
-        s_dim, feat.data_ptr(), feat.shape[1], starts.data_ptr(),
+        width, feat.data_ptr(), feat.shape[1], starts.data_ptr(),
         ends.data_ptr(), num_tiles, grid_x, aug.data_ptr(), sa,
         out.data_ptr(), rows.data_ptr(), _nvcc.stream()), "trace_fwd")
     trace_fwd.launches += 1
-    return out, rows
+    return unpad_raw(out, s_dim, width), rows
 
 
 trace_fwd.launches = 0

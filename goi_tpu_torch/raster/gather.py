@@ -43,7 +43,7 @@ _SIGNATURES = {
 VEC = 4   # slots a kernel thread stores at once (16 bytes)
 _MONO_SIGNATURES = {"goi_mono_rows": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]}
 MONO_B = 1024      # indices per block (the micro-benchmark's B)
 MONO_SPAN = 2048   # table rows a block's window covers (its SPAN)
@@ -171,15 +171,22 @@ def mono_rows(table: torch.Tensor, idx: torch.Tensor, blk: int = MONO_B,
                         f"{table.dtype} and {idx.dtype}")
     if not _nvcc.is_cuda(idx) or idx.device != table.device:
         raise ValueError("table and idx must be on the same CUDA device")
+    n, c = table.shape
+    m = idx.shape[0]
+    if max(n * c, m * c, m + blk, span) >= 2 ** 31 or blk <= 0 or span <= 0:
+        raise ValueError(f"the kernel indexes in 32 bits: table "
+                         f"{tuple(table.shape)}, {m} indices, blk {blk} and "
+                         f"span {span} must stay under 2^31 (blk, span > 0)")
     lib = _nvcc.library("mono_rows", _MONO_SIGNATURES)
     table = table.contiguous()
     idx = idx.contiguous()
-    n, c = table.shape
-    m = idx.shape[0]
     out = torch.empty((m, c), dtype=torch.float32, device=table.device)
+    # 16-byte copies when every row is whole float4s on 16-byte addresses
+    vec = c % 4 == 0 and table.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
     _nvcc.check(lib.goi_mono_rows(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), c, n, m, blk, span,
-        _nvcc.stream()), "mono_rows")
+        int(vec), _nvcc.stream()), "mono_rows")
     mono_rows.launches += 1
     return out
 

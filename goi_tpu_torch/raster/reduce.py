@@ -26,7 +26,14 @@ TPU kernel did).
 `dense_boundary_reduce` (`RasterConfig.dense_reduce`, the counterpart of
 `_dense_boundary_reduce`) gives blocked_segment_reduce's bits with the
 prefix and its read-out at the bounds fused into csrc/prefix_boundary.cu
-(`prefix_boundary`; `prefix_boundary_plain` on a CPU tensor).
+(`prefix_boundary`; `prefix_boundary_plain` on a CPU tensor). Its blocks
+find their bounds in a first-bound table (`block_first_bounds_plain` is
+the table's plain twin).
+
+Both kernels keep a block's (blk, d) rows in shared memory, so rows
+wider than fits (d > 106 at blk = 512, as a trace of more than 105
+channels gives) are scanned in column slices, one launch each: every
+column's scan is its own, so the bits are those of one launch.
 """
 
 from __future__ import annotations
@@ -44,10 +51,36 @@ SUB = 128            # smallest block; other sizes are padded to it
 _SIGNATURES = {"goi_prefix_blocks": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]}
-_BOUNDARY_SIGNATURES = {"goi_prefix_boundary": [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p]}
+_BOUNDARY_SIGNATURES = {
+    "goi_first_bounds": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    "goi_prefix_boundary": [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]}
+
+
+def column_slices(d: int, blk: int, smem: int):
+    """[c0, c1) column slices of (blk, d) row blocks, as few and as even
+    as fit `smem` bytes of one CTA's shared memory (4 (blk + 33) bytes a
+    column, csrc/block_scan.cuh smem_bytes)."""
+    per = smem // (4 * (blk + 33))
+    k = -(-d // per)
+    step = -(-d // k)
+    return [(c0, min(c0 + step, d)) for c0 in range(0, d, step)]
+
+
+def _by_column_slices(launch, rows: torch.Tensor, blk: int):
+    """launch(part) -> (a, b) for each column slice of rows, joined along
+    the columns; the slices fit the shared memory a CTA may opt in to on
+    rows' device (227 KB on the H100)."""
+    smem = torch.cuda.get_device_properties(
+        rows.device).shared_memory_per_block_optin
+    parts = [launch(rows[:, c0:c1].contiguous())
+             for c0, c1 in column_slices(rows.shape[1], blk, smem)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(x, 1) for x in zip(*parts))
 
 
 def prefix_blocks_plain(rows: torch.Tensor, okf: Optional[torch.Tensor],
@@ -82,18 +115,21 @@ def prefix_blocks(rows: torch.Tensor, okf: Optional[torch.Tensor] = None,
     if okf is not None and okf.device != rows.device:
         raise ValueError("rows and okf must be on the same CUDA device")
     lib = _nvcc.library("prefix", _SIGNATURES)
-    rows = rows.contiguous()
     okf = None if okf is None else okf.contiguous()
-    m, d = rows.shape
-    nb = m // blk
-    inner = torch.empty(((nb + 1) * blk, d), dtype=torch.float32,
-                        device=rows.device)
-    tot = torch.empty((nb, d), dtype=torch.float32, device=rows.device)
-    _nvcc.check(lib.goi_prefix_blocks(
-        rows.data_ptr(), None if okf is None else okf.data_ptr(), d, nb, blk,
-        inner.data_ptr(), tot.data_ptr(), _nvcc.stream()), "prefix_blocks")
-    prefix_blocks.launches += 1
-    return inner, tot
+    nb = rows.shape[0] // blk
+
+    def launch(part):
+        d = part.shape[1]
+        inner = torch.empty(((nb + 1) * blk, d), dtype=torch.float32,
+                            device=rows.device)
+        tot = torch.empty((nb, d), dtype=torch.float32, device=rows.device)
+        _nvcc.check(lib.goi_prefix_blocks(
+            part.data_ptr(), None if okf is None else okf.data_ptr(), d, nb,
+            blk, inner.data_ptr(), tot.data_ptr(), _nvcc.stream()),
+            "prefix_blocks")
+        prefix_blocks.launches += 1
+        return inner, tot
+    return _by_column_slices(launch, rows, blk)
 
 
 prefix_blocks.launches = 0
@@ -123,6 +159,18 @@ def _block_owner_sums(tot: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(x[last]))
 
 
+def block_first_bounds_plain(p: torch.Tensor, nb: int,
+                             blk: int) -> torch.Tensor:
+    """Plain version of csrc/prefix_boundary.cu's first-bound table:
+    (nb + 2,) int32 with first[b] = the number of bounds p[g] < b * blk
+    (blocks [first[b], first[b + 1]) of p lie in row block b; block nb
+    holds the bounds at the stream's end nb * blk), counted per block and
+    summed."""
+    per_block = torch.bincount(p.long() // blk, minlength=nb + 1)
+    return torch.cat([per_block.new_zeros(1),
+                      torch.cumsum(per_block[:nb + 1], 0)]).to(torch.int32)
+
+
 def prefix_boundary_plain(rows: torch.Tensor, p: torch.Tensor, blk: int):
     """Plain version of the kernel: (the block-local exclusive prefix at
     each row p[g], zero at the stream's end nb * blk (n + 1, d), block
@@ -147,19 +195,33 @@ def prefix_boundary(rows: torch.Tensor, p: torch.Tensor,
         raise TypeError("float32 rows and int64 p expected")
     if p.device != rows.device:
         raise ValueError("rows and p must be on the same CUDA device")
-    lib = _nvcc.library("prefix_boundary", _BOUNDARY_SIGNATURES)
-    rows = rows.contiguous()
-    p = p.contiguous()
     m, d = rows.shape
+    if max(rows.numel(), p.shape[0] * d, m + blk) >= 2 ** 31:
+        raise ValueError(f"the kernel indexes in 32 bits: rows "
+                         f"{tuple(rows.shape)} and {p.shape[0]} bounds are "
+                         f"too many")
+    lib = _nvcc.library("prefix_boundary", _BOUNDARY_SIGNATURES)
+    p = p.contiguous()
     nb = m // blk
-    lb = torch.empty((p.shape[0], d), dtype=torch.float32,
-                     device=rows.device)
-    tot = torch.empty((nb, d), dtype=torch.float32, device=rows.device)
-    _nvcc.check(lib.goi_prefix_boundary(
-        rows.data_ptr(), d, nb, blk, p.data_ptr(), p.shape[0], lb.data_ptr(),
-        tot.data_ptr(), _nvcc.stream()), "prefix_boundary")
-    prefix_boundary.launches += 1
-    return lb, tot
+    # the first-bound table, one launch per call; the count below counts
+    # the prefix kernel's launches, one per column slice
+    first = torch.empty(nb + 2, dtype=torch.int32, device=rows.device)
+    _nvcc.check(lib.goi_first_bounds(p.data_ptr(), p.shape[0], nb, blk,
+                                     first.data_ptr(), _nvcc.stream()),
+                "prefix_boundary first-bound table")
+
+    def launch(part):
+        d = part.shape[1]
+        lb = torch.empty((p.shape[0], d), dtype=torch.float32,
+                         device=rows.device)
+        tot = torch.empty((nb, d), dtype=torch.float32, device=rows.device)
+        _nvcc.check(lib.goi_prefix_boundary(
+            part.data_ptr(), d, nb, blk, p.data_ptr(), p.shape[0],
+            first.data_ptr(), lb.data_ptr(), tot.data_ptr(),
+            _nvcc.stream()), "prefix_boundary")
+        prefix_boundary.launches += 1
+        return lb, tot
+    return _by_column_slices(launch, rows, blk)
 
 
 prefix_boundary.launches = 0

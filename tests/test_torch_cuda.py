@@ -597,3 +597,198 @@ def test_mono_rows_kernel_bit_exact(cuda, n, m, blk, span):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     zero = ~want.any(dim=1)
     assert bool(zero.any()) == (blk == 8)
+
+
+def _count_reference(feat, starts, ends, grid_x):
+    """Walked and blended counts of the plain trace (its transmittance
+    multiplied one instance at a time, in the kernels' order)."""
+    raw, _ = cuda_trace.trace_fwd_plain(
+        feat, starts, ends,
+        torch.ones((starts.numel(), 256, 1), device=feat.device), grid_x)
+    return raw[..., -2:]
+
+
+@pytest.mark.parametrize("sem_dim", [1, 12, 33])
+def test_kernels_at_widths_between_instances(cuda, sem_dim):
+    """Widths the kernels are not built for run padded to the next
+    instance: each kernel against its plain version at the usual
+    tolerances, the counts exactly, the trace's raw output bit-identical
+    to the forward's."""
+    assert sem_dim not in cuda_blend.SEM_DIMS
+    feat, b = _packed(sem_dim, cuda)
+    st, en = b.tile_start, b.tile_end
+    raw = cuda_blend.blend_fwd(feat, st, en, 10)
+    torch.cuda.synchronize()
+    assert raw.shape[-1] == sem_dim + 7
+    want = cuda_blend.blend_fwd_plain(feat, st, en, 10)
+    n = 4 + sem_dim + 1
+    torch.testing.assert_close(raw[..., :n], want[..., :n], rtol=5e-5,
+                               atol=5e-5)
+    assert torch.equal(raw[..., n:], _count_reference(feat, st, en, 10))
+    gen = torch.Generator(device=cuda).manual_seed(sem_dim)
+    grad = torch.randn(raw.shape, generator=gen, device=cuda)
+    rows = cuda_blend.blend_bwd(feat, st, en, raw, grad, 10)
+    torch.cuda.synchronize()
+    assert rows.shape == (feat.shape[1], 10 + sem_dim)
+    _close_to_peak(rows, cuda_blend.blend_bwd_plain(feat, st, en, raw, grad,
+                                                    10), f"S={sem_dim}")
+    aug = _aug(80, 10, sem_dim, cuda, outside=10)
+    traw, trows = cuda_trace.trace_fwd(feat, st, en, aug, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(traw, raw)
+    _, want_rows = cuda_trace.trace_fwd_plain(feat, st, en, aug, 10)
+    assert torch.equal(trows[:, -1], want_rows[:, -1])
+    torch.testing.assert_close(trows, want_rows, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_padded_width_is_bit_identical_to_the_native_one(cuda, width):
+    """S = 10 padded with zero semantic rows to a wider instance
+    (pad_feat, pad_raw) and sliced back (unpad_raw, unpad_rows) gives the
+    native instance's bits in all three kernels, counts included: the
+    padded channels add exact zeros, and each field's sum keeps its
+    order. A width between instances takes the same path inside the
+    wrappers."""
+    feat, b = _packed(10, cuda)
+    st, en = b.tile_start, b.tile_end
+    raw = cuda_blend.blend_fwd(feat, st, en, 10)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    grad = torch.randn(raw.shape, generator=gen, device=cuda)
+    rows = cuda_blend.blend_bwd(feat, st, en, raw, grad, 10)
+    aug = _aug(80, 10, width, cuda)
+    traw, trows = cuda_trace.trace_fwd(feat, st, en, aug, 10)
+    wide = cuda_blend.pad_feat(feat, width)
+    assert wide.shape[0] == 10 + width
+    assert torch.equal(cuda_blend.unpad_raw(
+        cuda_blend.blend_fwd(wide, st, en, 10), 10, width), raw)
+    assert torch.equal(cuda_blend.unpad_rows(cuda_blend.blend_bwd(
+        wide, st, en, cuda_blend.pad_raw(raw, 10, width),
+        cuda_blend.pad_raw(grad, 10, width), 10), 10, width), rows)
+    got_raw, got_rows = cuda_trace.trace_fwd(wide, st, en, aug, 10)
+    got_raw = cuda_blend.unpad_raw(got_raw, 10, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got_raw, traw) and torch.equal(got_rows, trows)
+    assert rows.abs().sum() > 0 and trows[:, -1].sum() > 0
+
+
+@pytest.mark.parametrize("sem_dim,s_img", [(10, 32), (10, 64), (64, 126),
+                                           (3, 126)])
+def test_trace_kernel_lifts_wide_maps(cuda, sem_dim, s_img):
+    """Lift widths past one warp's 32 lanes (sa = 33, 65, 127 = SA_MAX),
+    summed in groups of 32 fields: rows against the plain version, hit
+    counts exactly; at S = 64, sa = 127 the CTA holds the widest tile."""
+    feat, b = _packed(sem_dim, cuda)
+    st, en = b.tile_start, b.tile_end
+    aug = _aug(80, s_img, s_img, cuda, outside=10)
+    raw, rows = cuda_trace.trace_fwd(feat, st, en, aug, 10)
+    torch.cuda.synchronize()
+    assert rows.shape == (feat.shape[1], s_img + 1)
+    want_raw, want_rows = cuda_trace.trace_fwd_plain(feat, st, en, aug, 10)
+    n = 4 + sem_dim + 1
+    assert torch.equal(raw[..., n:], want_raw[..., n:])
+    assert torch.equal(rows[:, -1], want_rows[:, -1])
+    torch.testing.assert_close(rows, want_rows, rtol=1e-4, atol=1e-4)
+    assert torch.equal(raw, cuda_blend.blend_fwd(feat, st, en, 10))
+    kept = int(en[-1])
+    assert not rows[kept:].any() and rows[:kept, -1].sum() > 0
+
+
+def test_kernels_raise_past_their_bounds(cuda):
+    """S_MAX + 1 semantic channels and SA_MAX + 1 lifted fields raise
+    ValueError naming the bound and the reference backend."""
+    feat, b = _packed(cuda_blend.S_MAX, cuda)
+    st, en = b.tile_start, b.tile_end
+    wide = torch.cat([feat[:-1], feat[-2:]])       # S_MAX + 1 channels
+    with pytest.raises(ValueError, match="S_MAX.*reference"):
+        cuda_blend.blend_fwd(wide, st, en, 10)
+    raw = torch.zeros((80, 256, cuda_blend.S_MAX + 8), device=cuda)
+    with pytest.raises(ValueError, match="S_MAX.*reference"):
+        cuda_blend.blend_bwd(wide, st, en, raw, raw, 10)
+    with pytest.raises(ValueError, match="S_MAX.*reference"):
+        cuda_trace.trace_fwd(wide, st, en, _aug(80, 10, 0, cuda), 10)
+    with pytest.raises(ValueError, match="SA_MAX.*reference"):
+        cuda_trace.trace_fwd(feat, st, en, _aug(80, cuda_trace.SA_MAX, 0,
+                                                cuda), 10)
+
+
+def _edge_bounds(case, m, blk, gen, device):
+    """(n,) int64 non-decreasing bounds in [0, m] of one edge case."""
+    if case == "repeated":    # the chain's clamp under an overflow
+        sizes = torch.randint(0, 9, (m // 3,), generator=gen, device=device)
+        b = torch.clamp(torch.cat([torch.zeros(1, dtype=torch.long,
+                                               device=device),
+                                   torch.cumsum(sizes, 0)]), max=m - 1)
+        return torch.cat([b, torch.full((4,), m, device=device)])
+    if case == "one_block":
+        b = torch.randint(2 * blk, 3 * blk, (300,), generator=gen,
+                          device=device)
+        return torch.sort(b).values
+    # empty blocks: bounds only in the first and the last block
+    b = torch.cat([torch.randint(0, blk, (200,), generator=gen,
+                                 device=device),
+                   torch.randint(m - blk, m + 1, (200,), generator=gen,
+                                 device=device)])
+    return torch.sort(b).values
+
+
+@pytest.mark.parametrize("case", ["repeated", "one_block", "empty_blocks"])
+@pytest.mark.parametrize("blk", [96, 128, 256, 512])
+@pytest.mark.parametrize("d", [1, 11, 20, 33])
+def test_prefix_boundary_edge_cases_bit_identical(cuda, d, blk, case):
+    """The redesigned kernel's lb and totals against the prefix kernel's
+    inner[p] and totals, bit for bit: its first-bound table, its
+    register and its warp-per-bound read-outs (blocks of more than 256
+    bounds) at every block size (96 rows: the instance whose run is not
+    a compile-time constant)."""
+    nb = 6
+    m = nb * blk
+    gen = torch.Generator(device=cuda).manual_seed(d * blk + len(case))
+    rows = torch.randn((m, d), generator=gen, device=cuda) * 10
+    p = _edge_bounds(case, m, blk, gen, cuda)
+    inner, tot = R.prefix_blocks(rows, None, blk)
+    before = R.prefix_boundary.launches
+    lb, t2 = R.prefix_boundary(rows, p, blk)
+    torch.cuda.synchronize()
+    assert R.prefix_boundary.launches == before + 1
+    assert torch.equal(lb, inner[p]) and torch.equal(t2, tot)
+
+
+def test_prefix_boundary_wide_rows_in_column_slices(cuda):
+    """Rows too wide for one CTA's shared memory (d = 127 at blk = 512,
+    a 126-channel trace's) are scanned in column slices, bit-identical
+    to the prefix kernel's (sliced the same way)."""
+    gen = torch.Generator(device=cuda).manual_seed(127)
+    m = 4 * 512
+    rows = torch.randn((m, 127), generator=gen, device=cuda)
+    p = _edge_bounds("repeated", m, 512, gen, cuda)
+    before = (R.prefix_boundary.launches, R.prefix_blocks.launches)
+    lb, tot = R.prefix_boundary(rows, p)
+    inner, tot_u = R.prefix_blocks(rows)
+    torch.cuda.synchronize()
+    assert R.prefix_boundary.launches == before[0] + 2
+    assert R.prefix_blocks.launches == before[1] + 2
+    assert torch.equal(lb, inner[p]) and torch.equal(tot, tot_u)
+    want, want_tot = R.prefix_blocks_plain(rows, None, 512)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(inner, want, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("n,m,c,blk,span", [
+    (5000, 4001, 1, 8, 16),         # scalar copies, m % blk != 0
+    (5000, 4001, 24, 8, 16),        # float4 copies, indices past windows
+    (5000, 4003, 25, 16, 64),       # scalar copies, c % 4 != 0
+    (1000, 3333, 24, 1024, 2048),   # n < span: the window starts below 0
+    (100_000, 77_777, 24, 1024, 2048)])
+def test_mono_rows_kernel_edge_cases_bit_exact(cuda, n, m, c, blk, span):
+    gen = torch.Generator(device=cuda).manual_seed(n + c)
+    table = torch.randn((n, c), generator=gen, device=cuda)
+    idx = torch.sort(torch.randint(0, n, (m,), generator=gen, device=cuda,
+                                   dtype=torch.int32)).values
+    if span < n:    # an index past block 0's window
+        idx[blk // 2] = min(int(idx[0]) + span, n - 1)
+        idx = torch.cummax(idx, 0).values
+    got = mono_rows(table, idx, blk, span)
+    torch.cuda.synchronize()
+    want = mono_rows_plain(table, idx, blk, span)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((~want.any(dim=1)).any()) == (span < n)

@@ -103,8 +103,13 @@ def test_blend_wrapper_raises_without_library(no_library):
     se = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_blend.blend_fwd(feat, se, se + 16, 1)
-    with pytest.raises(ValueError, match="sem_dim"):
+    # any width up to S_MAX is taken (padded to an instance); past it the
+    # error names the bound and the reference backend
+    with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_blend.blend_fwd(torch.zeros(21, 16), se, se + 16, 1)
+    s_over = cuda_blend.S_MAX + 1
+    with pytest.raises(ValueError, match=r"sem_dim 0\.\.64.*reference"):
+        cuda_blend.blend_fwd(torch.zeros(10 + s_over, 16), se, se + 16, 1)
     assert cuda_blend.blend_fwd.launches == before
 
 
@@ -117,6 +122,11 @@ def test_blend_bwd_wrapper_raises_without_library(no_library):
         cuda_blend.blend_bwd(feat, se, se + 16, raw, raw, 1)
     with pytest.raises(ValueError, match="raw and grad"):
         cuda_blend.blend_bwd(feat, se, se + 16, raw[:, :, :5], raw, 1)
+    s_over = cuda_blend.S_MAX + 1
+    wide = torch.zeros(1, 256, s_over + 7)
+    with pytest.raises(ValueError, match="S_MAX"):
+        cuda_blend.blend_bwd(torch.zeros(10 + s_over, 16), se, se + 16,
+                             wide, wide, 1)
     assert cuda_blend.blend_bwd.launches == before
 
 
@@ -136,10 +146,16 @@ def test_trace_wrapper_raises_without_library(no_library):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_trace.trace_fwd(feat, se, se + 16, torch.zeros(1, 256, 11), 1)
     with pytest.raises(ValueError, match="sem_dim"):
-        cuda_trace.trace_fwd(torch.zeros(21, 16), se, se + 16,
-                             torch.zeros(1, 256, 11), 1)
-    with pytest.raises(ValueError, match="0..31"):
-        cuda_trace.trace_fwd(feat, se, se + 16, torch.zeros(1, 256, 33), 1)
+        cuda_trace.trace_fwd(torch.zeros(11 + cuda_blend.S_MAX, 16), se,
+                             se + 16, torch.zeros(1, 256, 11), 1)
+    # lift widths up to SA_MAX = 127 fields are taken, past it the error
+    # names the bound and the reference backend
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_trace.trace_fwd(feat, se, se + 16,
+                             torch.zeros(1, 256, cuda_trace.SA_MAX), 1)
+    with pytest.raises(ValueError, match=r"0\.\.126.*reference"):
+        cuda_trace.trace_fwd(feat, se, se + 16,
+                             torch.zeros(1, 256, cuda_trace.SA_MAX + 1), 1)
     assert cuda_trace.trace_fwd.launches == before
 
 
