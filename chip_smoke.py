@@ -50,16 +50,28 @@ exits non-zero without the final result line:
    a small scene's trace on the card against the CPU; p50/p95 wall time
    and one profiled call;
 7. [widths] the blend, backward and trace kernels at semantic widths
-   1, 12, 33 and 64 (S_MAX; widths between the kernels' instances run
-   padded to the next one) and the trace at lift widths 32, 33, 65 and
-   127 (SA_MAX), on a seeded 100k-Gaussian scene at 1296x968, each
-   against its plain version (counts exactly), and S = 10 padded to the
-   next instance bit-identical to the native one, with times;
+   1, 12, 33, 64 (S_MAX; widths between the kernels' instances run
+   padded to the next one), 65, 117 and 128 (in channel groups of
+   S_MAX, each group bit-identical to a lone run of its channels, one
+   launch a group) and the trace at lift widths 32, 33, 65 and 127
+   (SA_MAX), on a seeded 100k-Gaussian scene at 1296x968, each against
+   its plain version (counts exactly), and S = 10 padded to the next
+   instance bit-identical to the native one, with times;
 8. [micro] the micro-benchmark (goi_tpu_torch/examples/micro_sortpayload.py)
    at its default sizes; the mono row gather bit-exact against its
    plain version and timed beside torch.index_select;
-9. a JSON line with every ported kernel's launches, error, times and
-   bound; then the final JSON line.
+9. [cli] the port's entry points on a scene from disk: a 4-view
+   1296x968 COLMAP scene (the seeded 1M-Gaussian scene's renders plus
+   noise, float16 256-dim feature maps, the scene as iteration 1) in a
+   temporary directory, then python -m goi_tpu_torch.train (10 steps),
+   .render, .metrics, query masks through QuerySession and .eval_seg,
+   each CLI's wall and load/compute seconds, the train steps' p50 and
+   the bytes written; it fails if a CLI exits non-zero, the triplet does
+   not reload, the PSNR is not finite or <= 25 dB or the mIoU is outside
+   [0, 1];
+10. a JSON line with every ported kernel's launches (those of the CLIs'
+   processes included), error, times and bound; then the final JSON
+   line.
 """
 
 import copy
@@ -113,12 +125,23 @@ MICRO_ITERS = 5     # steps per figure of the micro-benchmark
 KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "trace",
                   "prefix_boundary", "mono_rows")
 # [widths]: semantic widths between and at the kernels' instances (S_MAX
-# = 64 the widest), lift widths past one warp's 32 lanes (127 = SA_MAX),
-# on a WIDTHS_GAUSS-Gaussian scene at the full frame; S = 10 and sa = 11,
-# the main path's, as the yardstick
-WIDTHS_S = (1, 10, 12, 33, 64)
+# = 64 the widest), past it in channel groups (65, 117 = the pallas
+# blend's widest, 128), lift widths past one warp's 32 lanes (127 =
+# SA_MAX), on a WIDTHS_GAUSS-Gaussian scene at the full frame; S = 10
+# and sa = 11, the main path's, as the yardstick
+WIDTHS_S = (1, 10, 12, 33, 64, 65, 117, 128)
 WIDTHS_SA = (11, 32, 33, 65, 127)
 WIDTHS_GAUSS = 100_000
+# [cli]: a COLMAP scene on disk of CLI_VIEWS views (llffhold 8: view 0 is
+# the test view, the others train), images with seeded noise of sigma
+# CLI_NOISE (so the PSNR of a perfect render is finite, ~34 dB), trained
+# for CLI_ITERS steps; masks of CLI_PROTOS prototypes on the test view
+CLI_VIEWS = 4
+CLI_ITERS = 10
+CLI_NOISE = 0.02
+CLI_PROTOS = 2
+CLI_SFM_POINTS = 5000
+CLI_MIN_PSNR = 25.0
 
 
 def log(*a):
@@ -498,21 +521,28 @@ def feature_maps(n, seed, width, height, device):
     """Seeded APE-like (256, H, W) maps: N_PROTOS prototypes laid out by
     a random label map at 1/8 resolution, upsampled, plus a little
     per-pixel noise (so every pixel's feature is distinct)."""
+    return labelled_maps(n, seed, width, height, device)[0]
+
+
+def labelled_maps(n, seed, width, height, device):
+    """feature_maps' (maps, their (H, W) label maps, the prototypes)."""
     import torch
     rng = np.random.default_rng(seed)
     protos = torch.as_tensor(rng.normal(0, 1, (N_PROTOS, APE_DIM))
                              .astype(np.float32), device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    maps = []
+    maps, labels = [], []
     for _ in range(n):
         lab = torch.as_tensor(rng.integers(
             0, N_PROTOS, ((height + 7) // 8, (width + 7) // 8)),
             device=device)
         lab = lab.repeat_interleave(8, 0).repeat_interleave(8, 1)
-        fm = protos[lab[:height, :width]].permute(2, 0, 1).contiguous()
+        lab = lab[:height, :width]
+        fm = protos[lab].permute(2, 0, 1).contiguous()
         fm += 0.05 * torch.randn(fm.shape, generator=gen, device=device)
         maps.append(fm)
-    return maps
+        labels.append(lab)
+    return maps, labels, protos
 
 
 def step_grads(state, cam, gt, bg, cfg):
@@ -701,14 +731,8 @@ def small_train_check():
 def kernel_wrappers():
     """The kernels line's names -> each kernel's wrapper (its launch
     count is the wrapper's `launches`)."""
-    from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
-    from goi_tpu_torch.raster.cuda_trace import trace_fwd
-    from goi_tpu_torch.raster.gather import expand_gather, mono_rows
-    from goi_tpu_torch.raster.reduce import prefix_blocks, prefix_boundary
-    return {"gather": expand_gather, "blend": blend_fwd,
-            "blend_bwd": blend_bwd, "prefix": prefix_blocks,
-            "trace": trace_fwd, "prefix_boundary": prefix_boundary,
-            "mono_rows": mono_rows}
+    from goi_tpu_torch._cli import kernel_wrappers as wrappers
+    return wrappers()
 
 
 def reset_counts():
@@ -981,15 +1005,20 @@ def trace_phase(scene, cams, cfg, stats):
 def widths_phase():
     """[widths]: the blend, backward and trace kernels at semantic widths
     between and at their instances (WIDTHS_S, run padded to the next
-    instance) and the trace at lift widths past one warp (WIDTHS_SA), on
+    instance) and past the widest (in channel groups of S_MAX, one launch
+    a group), and the trace at lift widths past one warp (WIDTHS_SA), on
     a seeded WIDTHS_GAUSS-Gaussian scene at the full frame: each against
     its plain version at the main path's tolerances, walked, blended and
-    hit counts exactly; S = 10 padded to the next instance bit-identical
-    to the native instance in all three kernels. The scene carries S_MAX
-    channels; a width S takes the first S of them, so the geometry, and
-    with it every count, is the same at every S."""
+    hit counts exactly; past S_MAX each forward group bit-identical to a
+    lone run of its channels on the S_MAX instance; S = 10 padded to the
+    next instance bit-identical to the native instance in all three
+    kernels. The scene carries max(WIDTHS_S) channels; a width S takes
+    the first S of them, so the geometry, and with it every count, is the
+    same at every S."""
     import torch
-    from goi_tpu_torch.raster.cuda_blend import (S_MAX, SEM_DIMS, blend_bwd,
+    from goi_tpu_torch.raster.cuda_blend import (S_MAX, SEM_DIMS,
+                                                 _channel_groups,
+                                                 _group_rows, blend_bwd,
                                                  blend_bwd_plain, blend_fwd,
                                                  blend_fwd_plain,
                                                  kernel_width, pad_feat,
@@ -998,18 +1027,23 @@ def widths_phase():
     from goi_tpu_torch.raster.cuda_trace import (SA_MAX, trace_fwd,
                                                  trace_fwd_plain)
     from goi_tpu_torch.raster.render import RasterConfig, suggest_budgets
-    if max(WIDTHS_S) != S_MAX or max(WIDTHS_SA) != SA_MAX:
-        raise AssertionError("the phase must reach S_MAX and SA_MAX")
-    scene = make_scene(WIDTHS_GAUSS, seed=11, device="cuda", sem_dim=S_MAX)
+    if S_MAX not in WIDTHS_S or max(WIDTHS_S) <= S_MAX \
+            or max(WIDTHS_SA) != SA_MAX:
+        raise AssertionError("the phase must reach S_MAX, pass it and "
+                             "reach SA_MAX")
+    s_all = max(WIDTHS_S)
+    scene = make_scene(WIDTHS_GAUSS, seed=11, device="cuda", sem_dim=s_all)
     cam = orbit_cams(WIDTH, HEIGHT, 1, "cuda")[0]
     mi, _ = suggest_budgets(scene, cam, margin=1.2)
-    f_max, starts, ends, gx = capture_inputs(
+    f_all, starts, ends, gx = capture_inputs(
         scene, cam, RasterConfig(max_instances=mi))["blend"]
     del scene
     nt = starts.numel()
 
     def feat_of(s_dim):    # the first s_dim semantic rows, then depth
-        return torch.cat([f_max[:9 + s_dim], f_max[9 + S_MAX:]]).contiguous()
+        return torch.cat([f_all[:9 + s_dim], f_all[9 + s_all:]]).contiguous()
+
+    f_max = feat_of(S_MAX)
 
     gen = torch.Generator(device="cuda").manual_seed(13)
 
@@ -1045,6 +1079,9 @@ def widths_phase():
     aug, ref_rows = plain_rows[33]
     for s_dim in WIDTHS_S:
         feat = feat_of(s_dim)
+        groups = _channel_groups(s_dim, S_MAX)
+        wrappers = (blend_fwd, blend_bwd, trace_fwd)
+        before = [k.launches for k in wrappers]
         raw = blend_fwd(feat, starts, ends, gx)
         ref = blend_fwd_plain(feat, starts, ends, gx)
         torch.cuda.synchronize()
@@ -1056,6 +1093,20 @@ def widths_phase():
                 or not torch.equal(raw[..., -2:], counts):
             raise AssertionError(f"[widths] blend_fwd S={s_dim}: {err_f}, "
                                  f"or counts differ")
+        lone = "one launch"
+        if len(groups) > 1:
+            # each group's channels against a lone run on the S_MAX instance
+            for lo, hi in groups:
+                one = blend_fwd(pad_feat(_group_rows(feat, s_dim, lo, hi),
+                                         S_MAX), starts, ends, gx)
+                if not torch.equal(one[..., 3:3 + hi - lo],
+                                   raw[..., 3 + lo:3 + hi]):
+                    raise AssertionError(
+                        f"[widths] blend_fwd S={s_dim}: group [{lo}, {hi}) "
+                        f"differs from a lone run on the {S_MAX} instance")
+            lone = (f"{len(groups)} groups, each bit-identical to a lone run "
+                    f"on the {S_MAX} instance")
+            before[0] += len(groups)
         grad = torch.randn(raw.shape, generator=gen, device="cuda")
         rows = blend_bwd(feat, starts, ends, raw, grad, gx)
         ref = blend_bwd_plain(feat, starts, ends, raw, grad, gx)
@@ -1070,16 +1121,25 @@ def widths_phase():
                 and torch.equal(trows[:, -1], ref_rows[:, -1])):
             raise AssertionError(f"[widths] trace S={s_dim}: raw differs "
                                  f"from blend_fwd's or rows {err_t}")
+        # launches: a forward and a backward per group, one trace (which
+        # runs the later groups through the forward)
+        want = [before[0] + 2 * len(groups) - 1, before[1] + len(groups),
+                before[2] + 1]
+        if [k.launches for k in wrappers] != want:
+            raise AssertionError(f"[widths] S={s_dim}: launches "
+                                 f"{[k.launches for k in wrappers]}, "
+                                 f"expected {want}")
         del ref, traw, trows
         times = [median_ms(fn, iters=5) for fn in (
             lambda: blend_fwd(feat, starts, ends, gx),
             lambda: blend_bwd(feat, starts, ends, raw, grad, gx),
             lambda: trace_fwd(feat, starts, ends, aug, gx))]
-        log(f"[widths] S={s_dim} (instance {kernel_width(s_dim)}): blend_fwd "
-            f"max_err={err_f:.3e} counts equal, blend_bwd max_err={err_b:.3e}"
-            f", trace raw bit-identical to blend_fwd's, rows max_err="
-            f"{err_t:.3e}, hits equal; kernel ms blend_fwd {times[0]:.4f}, "
-            f"blend_bwd {times[1]:.4f}, trace (sa=33) {times[2]:.4f}")
+        log(f"[widths] S={s_dim} (instance {kernel_width(s_dim)}, {lone}): "
+            f"blend_fwd max_err={err_f:.3e} counts equal, blend_bwd "
+            f"max_err={err_b:.3e}, trace raw bit-identical to blend_fwd's, "
+            f"rows max_err={err_t:.3e}, hits equal; kernel ms blend_fwd "
+            f"{times[0]:.4f}, blend_bwd {times[1]:.4f}, trace (sa=33) "
+            f"{times[2]:.4f}")
     # S = 10 padded with zero rows to the next instance, as the wrappers
     # pad a width between instances, and sliced back: the native bits
     feat = feat_of(SEM_DIM)
@@ -1105,7 +1165,7 @@ def widths_phase():
     log(f"[widths] S={SEM_DIM} padded to the {width} instance: blend_fwd "
         f"(counts included), blend_bwd and trace (raw and rows) "
         f"bit-identical to the native instance; {nt} tiles, "
-        f"M={f_max.shape[1]}")
+        f"M={f_all.shape[1]}")
 
 
 def micro_phase(stats):
@@ -1125,6 +1185,207 @@ def micro_phase(stats):
     return {"mono_rows": n}
 
 
+def look_at_pose(eye):
+    """(W2C rotation, translation) of Camera.look_at(eye, 0, +y)."""
+    eye = np.asarray(eye, np.float64)
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(fwd, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    rw2c = np.stack([right, np.cross(fwd, right), fwd])
+    return rw2c, -rw2c @ eye
+
+
+def run_cli(module, args, cwd):
+    """`python -m module args` with check=True; returns (wall seconds,
+    the summary line's dict)."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", module, *args],
+                              cwd=cwd, check=True, capture_output=True,
+                              text=True)
+    except subprocess.CalledProcessError as e:
+        log(e.stdout[-6000:])
+        log(e.stderr[-6000:])
+        raise
+    wall = time.perf_counter() - t0
+    tag = f"[{module}] "
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
+    if len(lines) != 1:
+        raise AssertionError(f"[cli] {module}: no summary line")
+    return wall, json.loads(lines[0][len(tag):])
+
+
+def cli_phase():
+    """[cli]: the port's entry points on a scene from disk. A COLMAP scene
+    of CLI_VIEWS views at the full frame (sparse/0 binaries, a small SfM
+    cloud, the seeded 1M-Gaussian scene's renders plus noise, 256-dim
+    float16 feature maps of the train views as clip_feat/<name>.pt) and
+    the scene as iteration 1; then python -m goi_tpu_torch.train (-r 1
+    --eval, CLI_ITERS steps), .render, .metrics; query masks of
+    CLI_PROTOS prototypes on the test view through QuerySession; then
+    .eval_seg against the seeded label map's masks. Fails if a CLI exits
+    non-zero, the triplet is missing or does not reload, the PSNR is not
+    finite or <= CLI_MIN_PSNR, or the mIoU is outside [0, 1]. Returns the
+    kernel launches of the path (the CLIs' own counts and the query's)."""
+    import os
+    import shutil
+    import torch
+    from goi_tpu_torch.app.session import QuerySession
+    from goi_tpu_torch.core.camera import focal2fov, fov2focal
+    from goi_tpu_torch.data import scene as triplet
+    from goi_tpu_torch.data.dataset import build_cameras
+    from goi_tpu_torch.data.readers import load_scene_info
+    from goi_tpu_torch.examples.rehearsal import write_colmap
+    from goi_tpu_torch.raster.render import (RasterConfig, render,
+                                             suggest_budgets)
+    from goi_tpu_torch.utils.image import save_image
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="goi_cli_")
+    try:
+        t0 = time.perf_counter()
+        scene_dir = os.path.join(root, "scene")
+        model = os.path.join(root, "model")
+        scene = make_scene(N_GAUSS, seed=0, device="cuda")
+        focal = fov2focal(0.9, WIDTH)
+        poses = []
+        for i in range(CLI_VIEWS):
+            a = 2 * math.pi * i / CLI_VIEWS + 0.3
+            poses.append((*look_at_pose([4.5 * math.sin(a), 0.5,
+                                         -4.5 * math.cos(a)]), None))
+        rng = np.random.default_rng(17)
+        pick = rng.choice(N_GAUSS, CLI_SFM_POINTS, replace=False)
+        sfm_xyz = scene.xyz[torch.as_tensor(pick, device="cuda")].cpu() \
+            .numpy().astype(np.float64)
+        write_colmap(scene_dir, poses, WIDTH, HEIGHT, focal,
+                     fov2focal(focal2fov(focal, HEIGHT), HEIGHT), [],
+                     sfm_xyz, np.full((CLI_SFM_POINTS, 3), 128, np.uint8))
+        info = load_scene_info(scene_dir, eval_split=True)
+        if (len(info.test_cameras), len(info.train_cameras)) != (1, 3):
+            raise AssertionError("[cli] llffhold 8 should give 1 test and "
+                                 "3 train views")
+        infos = info.test_cameras + info.train_cameras     # name order
+        cams = build_cameras(infos, 1, device="cuda")
+        cfg = RasterConfig(max_instances=suggest_budgets(
+            scene, cams, margin=1.2)[0])
+        maps, labels, protos = labelled_maps(CLI_VIEWS, 7, WIDTH, HEIGHT,
+                                             "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(CLI_VIEWS)
+        os.makedirs(os.path.join(scene_dir, "clip_feat"))
+        bg = torch.zeros(3, device="cuda")
+        for i, (inf, cam) in enumerate(zip(infos, cams)):
+            with torch.no_grad():
+                img = render(scene, cam, bg, cfg)["render"]
+            img = torch.clamp(img + CLI_NOISE * torch.randn(
+                img.shape, generator=gen, device="cuda"), 0, 1)
+            save_image(img, inf.image_path)
+            if i:     # the train views' feature maps
+                torch.save(maps[i].half().cpu(), inf.semantic_path)
+        del maps
+        triplet.save(os.path.join(model, "point_cloud", "iteration_1"),
+                     scene)
+        del scene
+        torch.cuda.empty_cache()
+        log(f"[cli] scene on disk in {time.perf_counter() - t0:.1f} s: "
+            f"{CLI_VIEWS} views at {WIDTH}x{HEIGHT}, {CLI_SFM_POINTS} SfM "
+            f"points, feature maps (256, {HEIGHT}, {WIDTH}) float16 of the "
+            f"3 train views, {N_GAUSS} Gaussians as iteration 1")
+
+        launches = {}
+        pc_dir = os.path.join(model, "point_cloud", f"iteration_{CLI_ITERS}")
+        runs = [("train", ["-s", scene_dir, "-m", model, "-r", "1", "--eval",
+                           "--iterations", str(CLI_ITERS), "--test_iterations",
+                           str(CLI_ITERS), "--save_iterations",
+                           str(CLI_ITERS), "--tab_len", str(TAB_LEN),
+                           "--ape_dim", str(APE_DIM)]),
+                ("render", ["-m", model, "--iteration", str(CLI_ITERS)]),
+                ("metrics", ["-m", model])]
+        summaries = {}
+        for name, args in runs:
+            wall, summ = run_cli(f"goi_tpu_torch.{name}", args, repo)
+            summaries[name] = summ
+            for k, n in summ["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            split = ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in summ.items()
+                              if k.endswith("_s"))
+            log(f"[cli] python -m goi_tpu_torch.{name}: {wall:.1f} s wall "
+                f"({split}); launches {summ['launches']}")
+        used = summaries["train"]["launches"]
+        if min(used[k] for k in ("gather", "blend", "blend_bwd",
+                                 "prefix")) <= 0:
+            raise AssertionError(f"[cli] the train CLI did not launch every "
+                                 f"kernel of its path: {used}")
+        if min(summaries["render"]["launches"][k]
+               for k in ("gather", "blend")) <= 0:
+            raise AssertionError("[cli] the render CLI launched no kernel")
+        log(f"[cli] train: {CLI_ITERS} steps, step p50 "
+            f"{summaries['train']['step_ms_p50']:.1f} ms, budget "
+            f"{summaries['train']['budget']}, PSNR at step {CLI_ITERS} "
+            f"{summaries['train']['psnr']}")
+
+        # the triplet reloads
+        for f in (triplet.PLY, triplet.DECODER, triplet.LUT):
+            if not os.path.exists(os.path.join(pc_dir, f)):
+                raise AssertionError(f"[cli] {f} missing in {pc_dir}")
+        trained, decoder, lut = triplet.load(pc_dir, sem_dim=SEM_DIM,
+                                             device="cuda")
+        if trained.capacity != N_GAUSS or tuple(lut.shape) != (TAB_LEN,
+                                                               APE_DIM):
+            raise AssertionError("[cli] the saved triplet does not reload")
+        with open(os.path.join(model, "results.json")) as f:
+            res = json.load(f)[f"ours_{CLI_ITERS}"]
+        if not (math.isfinite(res["PSNR"]) and res["PSNR"] > CLI_MIN_PSNR):
+            raise AssertionError(f"[cli] PSNR {res['PSNR']} (must be finite "
+                                 f"and > {CLI_MIN_PSNR})")
+
+        # query masks of the test view, scored by the eval_seg CLI
+        test_cam = cams[0]
+        reset_counts()
+        sess = QuerySession(trained, decoder, lut, cfg, device="cuda")
+        for k in range(CLI_PROTOS):
+            sess.set_text(protos[k])
+            frame = sess.render_view(test_cam)
+            if frame.shape != (HEIGHT, WIDTH, 3) or \
+                    not np.isfinite(frame).all():
+                raise AssertionError(f"[cli] bad query frame {frame.shape}")
+            with torch.no_grad():
+                out = render(sess.scene, test_cam, sess.bg, cfg)
+            sim = sess.compute_similarity(
+                out["semantics"].reshape(SEM_DIM, -1).T)
+            name = f"proto_{k}"
+            pdir = os.path.join(root, "seg_pred", "synthetic", name)
+            gdir = os.path.join(root, "seg_gt", "synthetic", name, "masks")
+            os.makedirs(pdir)
+            os.makedirs(gdir)
+            save_image((sim > 0).reshape(1, HEIGHT, WIDTH).float(),
+                       os.path.join(pdir, f"{infos[0].image_name}.png"))
+            save_image((labels[0] == k).float()[None],
+                       os.path.join(gdir, f"{infos[0].image_name}.png"))
+        torch.cuda.synchronize()
+        for k, n in read_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        del sess, trained
+        wall, summ = run_cli("goi_tpu_torch.eval_seg", [
+            "-e", os.path.join(root, "seg_gt"), "-s",
+            os.path.join(root, "seg_pred"), "--scene_list", "synthetic",
+            "-d", "m360"], repo)
+        if not 0.0 <= summ["miou"] <= 1.0:
+            raise AssertionError(f"[cli] mIoU {summ['miou']} outside [0, 1]")
+        split = ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in summ.items()
+                          if k.endswith("_s"))
+        log(f"[cli] python -m goi_tpu_torch.eval_seg: {wall:.1f} s wall "
+            f"({split}); mIoU {summ['miou']:.4f} mPA {summ['mpa']:.4f} mP "
+            f"{summ['mp']}")
+        disk = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        log(f"[cli] PSNR {res['PSNR']:.3f} dB, SSIM {res['SSIM']:.4f}, "
+            f"LPIPS {res['LPIPS']}; triplet reloaded; {disk} bytes on disk; "
+            f"phase {time.perf_counter() - t0:.1f} s; launches {launches}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1132,6 +1393,7 @@ def main() -> int:
         return 1
 
     # ---- 1. device ----
+    t_start = time.time()
     import goi_tpu_torch  # noqa: F401  (fails outside a checkout)
     from goi_tpu_torch.raster import _nvcc
     smi = smi_line()
@@ -1282,7 +1544,12 @@ def main() -> int:
     # ---- 8. the micro-benchmark ----
     launches.update(micro_phase(stats))
 
-    # ---- 9. kernels line, result ----
+    # ---- 9. the entry points on a scene from disk ----
+    torch.cuda.empty_cache()
+    for k, n in cli_phase().items():
+        launches[k] = launches.get(k, 0) + n
+
+    # ---- 10. kernels line, result ----
     kernels = [
         dict(name="expand_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",
@@ -1319,6 +1586,7 @@ def main() -> int:
     ]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    log(f"[done] {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

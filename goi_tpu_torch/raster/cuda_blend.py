@@ -28,8 +28,13 @@ to S_MAX runs the next wider instance on a copy padded with zero
 semantic rows (`pad_feat`, `pad_raw`), whose outputs are sliced back
 (`unpad_raw`, `unpad_rows`): the padded channels are zero and add
 nothing, so the real channels and the counts are the bits an instance of
-S's own width would give. Above S_MAX a CUDA tensor raises; the plain
-versions and RasterConfig(backend="reference") take any width.
+S's own width would give. Above S_MAX the channels run in groups of at
+most S_MAX, one launch a group (`_fwd_in_groups`, `_bwd_in_groups`): the
+walk, the alphas, the transmittance and the stop depend only on geometry
+and opacity, so each semantic channel of the forward has the bits of a
+lone run of its group, and the backward's geometry rows are the sum of
+the groups' (in another order than one wide launch would sum them). The
+plain versions take any width in one call.
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ K = 256            # instances per chunk: the chunked layout's walk unit
 PIX = TILE * TILE
 SEM_DIMS = (0, 3, 8, 10, 16, 32, 64)   # template instances in
                                        # csrc/blend_*.cu and trace.cu
-S_MAX = SEM_DIMS[-1]   # widest S the kernels take (blend_bwd.cu's tile
-                       # needs 175 KB of shared memory at S = 64)
+S_MAX = SEM_DIMS[-1]   # the widest instance (blend_bwd.cu's tile needs
+                       # 175 KB of shared memory at S = 64); wider S runs
+                       # in channel groups of S_MAX
 # tiles per step of the plain version: bounds its (tiles, 256, K)
 # temporaries to a few hundred MB
 PLAIN_TILE_BATCH = 128
@@ -121,13 +127,92 @@ def blend_fwd_plain(feat, starts, ends, grid_x: int):
 
 def kernel_width(s_dim: int) -> int:
     """The kernel instance that runs semantic width s_dim: the narrowest
-    in SEM_DIMS that holds it. Raises ValueError above S_MAX."""
-    if not 0 <= s_dim <= S_MAX:
-        raise ValueError(
-            f"the CUDA kernels take sem_dim 0..{S_MAX} (S_MAX), got "
-            f"{s_dim}; use RasterConfig(backend=\"reference\") for wider "
-            f"semantics")
-    return next(w for w in SEM_DIMS if w >= s_dim)
+    in SEM_DIMS that holds it. Above S_MAX the channels run in groups of
+    S_MAX (`_channel_groups`): every full group on the S_MAX instance
+    named here, a narrower last group on the instance of its own width."""
+    if s_dim < 0:
+        raise ValueError(f"sem_dim must be >= 0, got {s_dim}")
+    return next((w for w in SEM_DIMS if w >= s_dim), S_MAX)
+
+
+def _channel_groups(s_dim: int, group: int) -> list:
+    """[lo, hi) ranges of at most `group` semantic channels that cover
+    0..s_dim - 1 in order (one empty range at S = 0)."""
+    return [(lo, min(lo + group, s_dim))
+            for lo in range(0, max(s_dim, 1), group)]
+
+
+def _group_rows(feat: torch.Tensor, s_dim: int, lo: int,
+                hi: int) -> torch.Tensor:
+    """(10 + S, M) packed features -> those of semantic channels lo..hi-1:
+    geometry, opacity and rgb (rows 0..8), semantic rows 9 + lo ..
+    9 + hi - 1, depth."""
+    if (lo, hi) == (0, s_dim):
+        return feat
+    return torch.cat([feat[:9], feat[9 + lo:9 + hi], feat[9 + s_dim:]])
+
+
+def _group_cols(raw: torch.Tensor, s_dim: int, lo: int,
+                hi: int) -> torch.Tensor:
+    """(T, 256, S + 7) raw output or its gradient -> the columns of
+    semantic channels lo..hi-1 in the same layout (rgb, those channels,
+    depth, T, counts)."""
+    if (lo, hi) == (0, s_dim):
+        return raw
+    return torch.cat([raw[..., :3], raw[..., 3 + lo:3 + hi],
+                      raw[..., 3 + s_dim:]], dim=-1)
+
+
+def _fwd_in_groups(feat: torch.Tensor, group: int, run,
+                   raw0: torch.Tensor = None) -> torch.Tensor:
+    """The raw forward output of S semantic channels as passes over
+    channel groups of at most `group`; `run` maps a group's packed
+    features to its raw output. Group 0 gives rgb, depth, T and the
+    counts (`raw0`, when given, is its raw output already computed);
+    each later group only its semantic columns, the bits of a lone run of
+    that group: a channel's sum depends on the walk and its own row."""
+    s_dim = feat.shape[0] - 10
+    (_, hi0), *later = _channel_groups(s_dim, group)
+    if raw0 is None:
+        raw0 = run(_group_rows(feat, s_dim, 0, hi0))
+    sems = [run(_group_rows(feat, s_dim, lo, hi))[..., 3:3 + hi - lo]
+            for lo, hi in later]
+    return torch.cat([raw0[..., :3 + hi0], *sems, raw0[..., 3 + hi0:]],
+                     dim=-1)
+
+
+def _bwd_in_groups(feat: torch.Tensor, raw: torch.Tensor,
+                   grad: torch.Tensor, group: int, run) -> torch.Tensor:
+    """The backward rows (M, 10 + S) as passes over channel groups of at
+    most `group`; `run(feat_g, raw_g, grad_g)` gives a group's rows.
+
+    Every per-pixel term of the backward (blend_bwd.cu's header) is
+    linear in the output gradient: total = sum_c g_c out_c + g_T T,
+    f . g, the prefix, dalpha and dpow; the walk depends on neither. So
+    each group runs with the forward's raw columns as they are; group 0
+    with the gradient of rgb, its channels, depth and T, every later
+    group with the gradient of its channels only (rgb, depth, T and the
+    counts zeroed: a zero gradient adds exact zeros, and the background
+    term through T is counted once). The semantic rows are each group's,
+    rgb and depth group 0's, and the geometry rows (x, y, conic a/b/c,
+    opacity) the sum of the groups', in group order."""
+    s_dim = feat.shape[0] - 10
+    geo = rgb = depth = None
+    sems = []
+    for lo, hi in _channel_groups(s_dim, group):
+        w = hi - lo
+        g = _group_cols(grad, s_dim, lo, hi)
+        if lo:
+            g = torch.cat([torch.zeros_like(g[..., :3]), g[..., 3:3 + w],
+                           torch.zeros_like(g[..., 3 + w:])], dim=-1)
+        rows = run(_group_rows(feat, s_dim, lo, hi),
+                   _group_cols(raw, s_dim, lo, hi), g)
+        if lo:
+            geo = geo + rows[:, :6]
+        else:
+            geo, rgb, depth = rows[:, :6], rows[:, 6:9], rows[:, 9 + w:]
+        sems.append(rows[:, 9:9 + w])
+    return torch.cat([geo, rgb, *sems, depth], dim=1)
 
 
 def pad_feat(feat: torch.Tensor, width: int) -> torch.Tensor:
@@ -188,11 +273,23 @@ def blend_fwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     if not _nvcc.is_cuda(feat):
         return blend_fwd_plain(feat, starts, ends, grid_x)
     s_dim = _check_kernel_inputs(feat, starts, ends)
+    starts = starts.contiguous()
+    ends = ends.contiguous()
+
+    def run(f):
+        return _blend_fwd_launch(f, starts, ends, grid_x)
+
+    if s_dim > S_MAX:
+        return _fwd_in_groups(feat, S_MAX, run)
+    return run(feat)
+
+
+def _blend_fwd_launch(feat, starts, ends, grid_x: int) -> torch.Tensor:
+    """One launch of the instance that holds feat's width (S <= S_MAX)."""
+    s_dim = feat.shape[0] - 10
     width = kernel_width(s_dim)
     lib = _nvcc.library("blend_fwd", _SIGNATURES)
     feat = pad_feat(feat, width).contiguous()
-    starts = starts.contiguous()
-    ends = ends.contiguous()
     num_tiles = starts.shape[0]
     out = torch.empty((num_tiles, PIX, width + 7), dtype=torch.float32,
                       device=feat.device)
@@ -279,16 +376,30 @@ def blend_bwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     if not _nvcc.is_cuda(feat):
         return blend_bwd_plain(feat, starts, ends, raw, grad, grid_x)
     s_dim = _check_kernel_inputs(feat, starts, ends, raw, grad)
-    width = kernel_width(s_dim)
     num_tiles = starts.shape[0]
     if raw.shape != (num_tiles, PIX, s_dim + 7) or raw.shape != grad.shape:
         raise ValueError(f"raw and grad of shape {(num_tiles, PIX, s_dim + 7)}"
                          f" expected, got {tuple(raw.shape)} and "
                          f"{tuple(grad.shape)}")
-    lib = _nvcc.library("blend_bwd", _BWD_SIGNATURES)
-    feat = pad_feat(feat, width).contiguous()
     starts = starts.contiguous()
     ends = ends.contiguous()
+
+    def run(f, r, g):
+        return _blend_bwd_launch(f, starts, ends, r, g, grid_x)
+
+    if s_dim > S_MAX:
+        return _bwd_in_groups(feat, raw, grad, S_MAX, run)
+    return run(feat, raw, grad)
+
+
+def _blend_bwd_launch(feat, starts, ends, raw, grad,
+                      grid_x: int) -> torch.Tensor:
+    """One launch of the instance that holds feat's width (S <= S_MAX)."""
+    s_dim = feat.shape[0] - 10
+    width = kernel_width(s_dim)
+    num_tiles = starts.shape[0]
+    lib = _nvcc.library("blend_bwd", _BWD_SIGNATURES)
+    feat = pad_feat(feat, width).contiguous()
     raw = pad_raw(raw, s_dim, width).contiguous()
     grad = pad_raw(grad, s_dim, width).contiguous()
     # the kernel writes every row, zeros where no pixel blends

@@ -11,8 +11,11 @@ hits inside the frame only. raster/render.py `trace` sums the rows per
 Gaussian with raster/reduce.py.
 
 Widths: the render's semantic width as raster/cuda_blend.py (padded up
-to a kernel instance, S_MAX at most); the lift takes sa = S_img + 1 up
-to SA_MAX fields on a CUDA tensor, and any sa in the plain version.
+to a kernel instance; above S_MAX the trace kernel runs the lift with
+semantic channel group 0 and cuda_blend's forward the later groups, so
+the raw output stays the forward's bit for bit); the lift takes
+sa = S_img + 1 up to SA_MAX fields on a CUDA tensor, and any sa in the
+plain version.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import torch
 from goi_tpu_torch.raster import _nvcc
 from goi_tpu_torch.raster.blend import _tile_pixel_coords, pair_alpha
 from goi_tpu_torch.raster.cuda_blend import (K, PIX, PLAIN_TILE_BATCH,
+                                             S_MAX, _blend_fwd_launch,
                                              _check_kernel_inputs,
+                                             _fwd_in_groups, _group_rows,
                                              kernel_width, pad_feat,
                                              unpad_raw)
 from goi_tpu_torch.raster.reference import T_EPS
@@ -123,17 +128,32 @@ def trace_fwd(feat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     if not _nvcc.is_cuda(feat):
         return trace_fwd_plain(feat, starts, ends, aug, grid_x)
     s_dim = _check_kernel_inputs(feat, starts, ends, aug)
-    width = kernel_width(s_dim)
     if sa > SA_MAX:
         raise ValueError(
             f"the trace kernel lifts 0..{SA_MAX - 1} feature channels "
             f"(S_img + 1 <= SA_MAX = {SA_MAX}), got S_img = {sa - 1}; use "
             f"RasterConfig(backend=\"reference\") for wider maps")
-    lib = _nvcc.library("trace", _SIGNATURES)
-    feat = pad_feat(feat, width).contiguous()
     starts = starts.contiguous()
     ends = ends.contiguous()
     aug = aug.contiguous()
+    if s_dim <= S_MAX:
+        return _trace_launch(feat, starts, ends, aug, grid_x)
+    raw0, rows = _trace_launch(_group_rows(feat, s_dim, 0, S_MAX), starts,
+                               ends, aug, grid_x)
+    raw = _fwd_in_groups(
+        feat, S_MAX, lambda f: _blend_fwd_launch(f, starts, ends, grid_x),
+        raw0=raw0)
+    return raw, rows
+
+
+def _trace_launch(feat, starts, ends, aug, grid_x: int):
+    """One launch of the instance that holds feat's width (S <= S_MAX)."""
+    s_dim = feat.shape[0] - 10
+    width = kernel_width(s_dim)
+    num_tiles = starts.shape[0]
+    sa = aug.shape[-1]
+    lib = _nvcc.library("trace", _SIGNATURES)
+    feat = pad_feat(feat, width).contiguous()
     out = torch.empty((num_tiles, PIX, width + 7), dtype=torch.float32,
                       device=feat.device)
     # the kernel writes every row, zeros where no pixel hits

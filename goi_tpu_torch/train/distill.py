@@ -29,6 +29,8 @@ from goi_tpu_torch.semantic.losses import distillation_loss
 from goi_tpu_torch.train.optim import (OptimConfig, make_scene_optimizer,
                                        scene_learning_rates,
                                        set_scheduled_lr)
+from goi_tpu_torch.utils.logging import TensorBoardLogger
+from goi_tpu_torch.utils.profiling import StepTimer
 
 ANNEAL_STEP = 1000   # anneal_t is 1 before this step, 2 from it on
 
@@ -132,17 +134,19 @@ def train_distillation(
     seed: int = 0,
     log_every: int = 100,
     callback=None,
+    tb_log_dir: Optional[str] = None,
     spatial_lr_scale: float = 1.0,
 ) -> DistillState:
     """Host-side training loop (ref:train.py:96-202): random camera
     order per epoch from np.random.default_rng(seed), each camera's
     feature map moved to the scene's device at its step, periodic
     logging, and a rebudget whenever the logged step overflowed its
-    instance budget.
+    instance budget. With `tb_log_dir`, the total loss and the step
+    time (utils/profiling.py's StepTimer) go to TensorBoard every 10
+    steps (ref:train.py:230-233).
     The k-means init and the decoder draw from one torch.Generator
-    seeded with `seed`. (The JAX loop's TensorBoard logging is not
-    ported.)"""
-    cfg = cfg or OptimConfig()
+    seeded with `seed`."""
+    cfg = cfg or OptimConfig(iterations=iterations)
     raster_cfg = raster_cfg or RasterConfig()
     dev = scene.device
     gen = torch.Generator().manual_seed(seed)
@@ -160,13 +164,20 @@ def train_distillation(
         else torch.zeros(3, device=dev)
     rng = np.random.default_rng(seed)
     stack: list = []
+    tb = TensorBoardLogger(tb_log_dir) if tb_log_dir else None
+    timer = StepTimer()
     for it in range(1, iterations + 1):
         if not stack:
             stack = list(rng.permutation(len(cameras)))
         ci = int(stack.pop())
         gt = torch.as_tensor(feature_maps[ci], dtype=torch.float32,
                              device=dev)
-        state, aux = train_step(state, cameras[ci], gt, bg, raster_cfg)
+        with timer:
+            state, aux = train_step(state, cameras[ci], gt, bg, raster_cfg)
+        if tb is not None and it % 10 == 0:
+            tb.scalar("train_loss_patches/total_loss", float(aux["total"]),
+                      it)
+            tb.scalar("iter_time", timer.ms, it)
         if it % log_every == 1 or it == iterations:
             slots = int(aux["num_slots"])
             ninst = int(aux["num_instances"])
@@ -179,4 +190,6 @@ def train_distillation(
                   f"recc {float(aux['recc']):.4f})")
         if callback is not None:
             callback(it, state, aux)
+    if tb is not None:
+        tb.close()
     return state

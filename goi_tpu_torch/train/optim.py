@@ -20,11 +20,12 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
-    """The learning rates and finetune toggles of OptimizationParams
-    (ref:arguments/__init__.py:64-91), with the JAX package's names and
-    defaults. Its densification and RGB-loss fields belong to RGB
-    training, which is not ported."""
+    """OptimizationParams (ref:arguments/__init__.py:64-91), with the JAX
+    package's names and defaults. Distillation reads `iterations`, the
+    learning rates and the finetune toggles; the densification and
+    RGB-loss fields belong to RGB training, which is not ported yet."""
 
+    iterations: int = 1500
     position_lr_init: float = 0.00016
     position_lr_final: float = 0.0000016
     position_lr_delay_mult: float = 0.01
@@ -34,6 +35,13 @@ class OptimConfig:
     opacity_lr: float = 0.05
     scaling_lr: float = 0.005
     rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15000
+    densify_grad_threshold: float = 0.0002
     # finetune toggles (GOI defaults: only semantics)
     position_finetune: bool = False
     feature_finetune: bool = False

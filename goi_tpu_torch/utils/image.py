@@ -1,8 +1,10 @@
-"""Image/mask helpers and heat overlays.
+"""Image/mask helpers, heat overlays and image files.
 
-Counterpart of goi_tpu/utils/image.py (the parts the query frame uses):
-the turbo-colormap heat overlay `clip_color`
-(ref:utils/image_utils.py:149-178) and `compute_mask_ratio` (:36-49).
+Counterpart of goi_tpu/utils/image.py (the parts the query frame and the
+CLIs use): the turbo-colormap heat overlay `clip_color`
+(ref:utils/image_utils.py:149-178), `compute_mask_ratio` (:36-49), and
+the PNG/JPEG reads, writes and resizes of the data readers and CLIs,
+through PIL, imported where the JAX package imports it.
 """
 
 from __future__ import annotations
@@ -73,3 +75,39 @@ def compute_mask_ratio(refer_mask, mask) -> float:
         return 0
     inter = np.logical_and(refer, np.asarray(mask, bool))
     return float(np.count_nonzero(inter) / np.count_nonzero(refer))
+
+
+def read_image(path: str, mode: str = "RGB") -> np.ndarray:
+    """An image file as uint8 (H, W, 3) for mode "RGB", (H, W) for "L"."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert(mode))
+
+
+def image_size(path: str) -> tuple:
+    """(width, height) of an image file, read from its header."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return im.size
+
+
+def resize_image(arr: np.ndarray, width: int, height: int,
+                 resample: str) -> np.ndarray:
+    """uint8 (H, W[, C]) -> (height, width[, C]) with PIL's "lanczos" (the
+    dataset's images) or "bilinear" (eval_seg's masks) filter."""
+    from PIL import Image
+    filt = {"lanczos": Image.LANCZOS, "bilinear": Image.BILINEAR}[resample]
+    return np.asarray(Image.fromarray(arr).resize((width, height), filt))
+
+
+def save_image(img, path: str) -> None:
+    """(3,H,W), (1,H,W) or (H,W,3) float in [0,1] (array or tensor) ->
+    8-bit PNG, as the JAX package writes it (x 255, clipped, truncated)."""
+    from PIL import Image
+    arr = img.detach().cpu().numpy() if torch.is_tensor(img) \
+        else np.asarray(img)
+    if arr.ndim == 3 and arr.shape[0] in (1, 3):
+        arr = arr.transpose(1, 2, 0)
+    if arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    Image.fromarray(np.clip(arr * 255, 0, 255).astype(np.uint8)).save(path)

@@ -694,21 +694,58 @@ def test_trace_kernel_lifts_wide_maps(cuda, sem_dim, s_img):
 
 
 def test_kernels_raise_past_their_bounds(cuda):
-    """S_MAX + 1 semantic channels and SA_MAX + 1 lifted fields raise
-    ValueError naming the bound and the reference backend."""
+    """SA_MAX + 1 lifted fields raise ValueError naming the bound and the
+    reference backend; S_MAX + 1 semantic channels no longer raise (they
+    run in channel groups: test_wide_semantics_run_in_channel_groups)."""
     feat, b = _packed(cuda_blend.S_MAX, cuda)
     st, en = b.tile_start, b.tile_end
-    wide = torch.cat([feat[:-1], feat[-2:]])       # S_MAX + 1 channels
-    with pytest.raises(ValueError, match="S_MAX.*reference"):
-        cuda_blend.blend_fwd(wide, st, en, 10)
-    raw = torch.zeros((80, 256, cuda_blend.S_MAX + 8), device=cuda)
-    with pytest.raises(ValueError, match="S_MAX.*reference"):
-        cuda_blend.blend_bwd(wide, st, en, raw, raw, 10)
-    with pytest.raises(ValueError, match="S_MAX.*reference"):
-        cuda_trace.trace_fwd(wide, st, en, _aug(80, 10, 0, cuda), 10)
     with pytest.raises(ValueError, match="SA_MAX.*reference"):
         cuda_trace.trace_fwd(feat, st, en, _aug(80, cuda_trace.SA_MAX, 0,
                                                 cuda), 10)
+
+
+@pytest.mark.parametrize("sem_dim", [65, 117, 128])
+def test_wide_semantics_run_in_channel_groups(cuda, sem_dim):
+    """Past S_MAX the three kernels run in groups of S_MAX channels, one
+    launch a group: each against its plain version at the usual
+    tolerances, the counts exactly, each forward group bit-identical to a
+    lone run of its channels on the S_MAX instance, and the trace's raw
+    output bit-identical to the forward's."""
+    groups = cuda_blend._channel_groups(sem_dim, cuda_blend.S_MAX)
+    assert len(groups) == 2
+    feat, b = _packed(sem_dim, cuda)
+    st, en = b.tile_start, b.tile_end
+    before = cuda_blend.blend_fwd.launches
+    raw = cuda_blend.blend_fwd(feat, st, en, 10)
+    torch.cuda.synchronize()
+    assert cuda_blend.blend_fwd.launches == before + len(groups)
+    assert raw.shape[-1] == sem_dim + 7
+    want = cuda_blend.blend_fwd_plain(feat, st, en, 10)
+    n = 4 + sem_dim + 1
+    torch.testing.assert_close(raw[..., :n], want[..., :n], rtol=5e-5,
+                               atol=5e-5)
+    assert torch.equal(raw[..., n:], _count_reference(feat, st, en, 10))
+    for lo, hi in groups:
+        lone = cuda_blend.blend_fwd(cuda_blend.pad_feat(
+            cuda_blend._group_rows(feat, sem_dim, lo, hi), cuda_blend.S_MAX),
+            st, en, 10)
+        assert torch.equal(lone[..., 3:3 + hi - lo], raw[..., 3 + lo:3 + hi])
+    gen = torch.Generator(device=cuda).manual_seed(sem_dim)
+    grad = torch.randn(raw.shape, generator=gen, device=cuda)
+    before = cuda_blend.blend_bwd.launches
+    rows = cuda_blend.blend_bwd(feat, st, en, raw, grad, 10)
+    torch.cuda.synchronize()
+    assert cuda_blend.blend_bwd.launches == before + len(groups)
+    assert rows.shape == (feat.shape[1], 10 + sem_dim)
+    _close_to_peak(rows, cuda_blend.blend_bwd_plain(feat, st, en, raw, grad,
+                                                    10), f"S={sem_dim}")
+    aug = _aug(80, 10, sem_dim, cuda, outside=10)
+    traw, trows = cuda_trace.trace_fwd(feat, st, en, aug, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(traw, raw)
+    _, want_rows = cuda_trace.trace_fwd_plain(feat, st, en, aug, 10)
+    assert torch.equal(trows[:, -1], want_rows[:, -1])
+    torch.testing.assert_close(trows, want_rows, rtol=1e-4, atol=1e-4)
 
 
 def _edge_bounds(case, m, blk, gen, device):

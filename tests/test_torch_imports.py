@@ -5,6 +5,7 @@ The guards walk every module of the package, so new modules are covered
 when they are added."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -44,6 +45,55 @@ def test_port_imports_no_jax_and_no_goi_tpu():
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in FILES for line, mod in _imports(p) if _forbidden(mod)]
     assert not bad, "\n".join(bad)
+
+
+# modules of the data/CLI slice, named so that the guards above are seen
+# to cover them (and the native loader's source is the port's own copy)
+SLICE_MODULES = (
+    "_cli.py", "configs/params.py", "data/colmap.py", "data/readers.py",
+    "data/dataset.py", "data/scene.py", "knn/knn.py", "eval/metrics.py",
+    "eval/lpips.py", "native/loader.py", "utils/logging.py",
+    "utils/profiling.py", "train/__main__.py", "render.py", "metrics.py",
+    "eval_seg.py", "examples/rehearsal.py")
+_GOI_TPU_NAME = re.compile(r"goi_tpu(?!_torch)\b")
+
+
+def _strings_naming_goi_tpu(path: Path):
+    """String constants, docstrings aside, that name the JAX package (a
+    path or module of it)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs and _GOI_TPU_NAME.search(node.value):
+            yield node.lineno, node.value
+
+
+def test_slice_modules_are_guarded_and_read_no_goi_tpu_file():
+    port = ROOT / "goi_tpu_torch"
+    assert {port / m for m in SLICE_MODULES} <= set(FILES)
+    bad = [f"{p.relative_to(ROOT)}:{line} names {text!r}"
+           for p in FILES if p.is_relative_to(port)
+           for line, text in _strings_naming_goi_tpu(p)]
+    assert not bad, "\n".join(bad)
+    from goi_tpu_torch.native import loader
+    assert loader.SRC == port / "native" / "colmap_native.cpp"
+    assert loader.SRC.exists()
+    assert loader.BUILD == _nvcc.BUILD == ROOT / "build" / "goi_tpu_torch"
+
+
+def test_string_guard_catches_goi_tpu_paths(tmp_path):
+    p = tmp_path / "x.py"
+    p.write_text('"""goi_tpu/ in a docstring is fine."""\n'
+                 'a = "goi_tpu/native/colmap_native.cpp"\n'
+                 'b = "goi_tpu_torch/native/colmap_native.cpp"\n'
+                 'c = "goi_tpu.data"\n')
+    assert [t for _, t in _strings_naming_goi_tpu(p)] == [
+        "goi_tpu/native/colmap_native.cpp", "goi_tpu.data"]
 
 
 def test_guard_catches_forbidden_imports(tmp_path):
@@ -103,13 +153,13 @@ def test_blend_wrapper_raises_without_library(no_library):
     se = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_blend.blend_fwd(feat, se, se + 16, 1)
-    # any width up to S_MAX is taken (padded to an instance); past it the
-    # error names the bound and the reference backend
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_blend.blend_fwd(torch.zeros(21, 16), se, se + 16, 1)
-    s_over = cuda_blend.S_MAX + 1
-    with pytest.raises(ValueError, match=r"sem_dim 0\.\.64.*reference"):
-        cuda_blend.blend_fwd(torch.zeros(10 + s_over, 16), se, se + 16, 1)
+    # any width is taken: padded to an instance up to S_MAX, in channel
+    # groups past it; a negative width names itself
+    for s_dim in (11, cuda_blend.S_MAX + 1):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cuda_blend.blend_fwd(torch.zeros(10 + s_dim, 16), se, se + 16, 1)
+    with pytest.raises(ValueError, match="sem_dim"):
+        cuda_blend.blend_fwd(torch.zeros(9, 16), se, se + 16, 1)
     assert cuda_blend.blend_fwd.launches == before
 
 
@@ -124,9 +174,12 @@ def test_blend_bwd_wrapper_raises_without_library(no_library):
         cuda_blend.blend_bwd(feat, se, se + 16, raw[:, :, :5], raw, 1)
     s_over = cuda_blend.S_MAX + 1
     wide = torch.zeros(1, 256, s_over + 7)
-    with pytest.raises(ValueError, match="S_MAX"):
+    with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_blend.blend_bwd(torch.zeros(10 + s_over, 16), se, se + 16,
                              wide, wide, 1)
+    with pytest.raises(ValueError, match="raw and grad"):
+        cuda_blend.blend_bwd(torch.zeros(10 + s_over, 16), se, se + 16,
+                             raw, raw, 1)
     assert cuda_blend.blend_bwd.launches == before
 
 
@@ -145,7 +198,8 @@ def test_trace_wrapper_raises_without_library(no_library):
     se = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_trace.trace_fwd(feat, se, se + 16, torch.zeros(1, 256, 11), 1)
-    with pytest.raises(ValueError, match="sem_dim"):
+    # past S_MAX semantic channels the trace runs in channel groups
+    with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_trace.trace_fwd(torch.zeros(11 + cuda_blend.S_MAX, 16), se,
                              se + 16, torch.zeros(1, 256, 11), 1)
     # lift widths up to SA_MAX = 127 fields are taken, past it the error

@@ -98,14 +98,19 @@ def test_train_step_grads_at_sem_dim_12_match_goi_tpu():
 
 
 def test_kernel_width_picks_an_instance_and_states_its_bound():
+    """The narrowest instance that holds S; past S_MAX (the widest
+    instance) no raise: the groups of S_MAX channels run on it."""
     assert CB.SEM_DIMS[-1] == CB.S_MAX >= 64
     assert [CB.kernel_width(s) for s in (0, 1, 3, 9, 10, 12, 16, 17, 33,
-                                         64)] == [0, 3, 3, 10, 10, 16, 16,
-                                                  32, 64, 64]
-    with pytest.raises(ValueError, match="S_MAX.*reference"):
-        CB.kernel_width(CB.S_MAX + 1)
-    with pytest.raises(ValueError, match="S_MAX.*reference"):
+                                         64, 65, 117, 128, 1000)] == [
+        0, 3, 3, 10, 10, 16, 16, 32, 64, 64, 64, 64, 64, 64]
+    with pytest.raises(ValueError, match="sem_dim"):
         CB.kernel_width(-1)
+    assert CB._channel_groups(0, CB.S_MAX) == [(0, 0)]
+    assert CB._channel_groups(64, CB.S_MAX) == [(0, 64)]
+    assert CB._channel_groups(65, CB.S_MAX) == [(0, 64), (64, 65)]
+    assert CB._channel_groups(128, CB.S_MAX) == [(0, 64), (64, 128)]
+    assert CB._channel_groups(8, 3) == [(0, 3), (3, 6), (6, 8)]
 
 
 def _packed(sem_dim, n=400, w=48, h=32, seed=7):
@@ -163,6 +168,78 @@ def test_padding_to_the_next_instance_keeps_the_real_channels(sem_dim):
     traw_p, trows_p = CT.trace_fwd_plain(padded, st, en, aug, gx)
     assert torch.equal(CB.unpad_raw(traw_p, sem_dim, width), traw)
     assert torch.equal(trows_p, trows)
+
+
+@pytest.mark.parametrize("sem_dim,group", [(8, 3), (7, 7), (9, 4)])
+def test_channel_groups_reassemble_one_wide_call(sem_dim, group):
+    """The card's decomposition of a width past S_MAX, driven with the
+    plain versions and small groups: the forward in groups is the one
+    wide call's raw output bit for bit (a channel's sum depends only on
+    the walk and its own row); the backward in groups within 1e-5 of the
+    rows' peak (only the geometry rows' sum over the groups changes
+    order)."""
+    feat, st, en, gx = _packed(sem_dim, seed=sem_dim)
+
+    def fwd(f):
+        return CB.blend_fwd_plain(f, st, en, gx)
+
+    raw = fwd(feat)
+    assert torch.equal(CB._fwd_in_groups(feat, group, fwd), raw)
+    (_, hi0), *_ = CB._channel_groups(sem_dim, group)
+    raw0 = fwd(CB._group_rows(feat, sem_dim, 0, hi0))
+    assert torch.equal(CB._fwd_in_groups(feat, group, fwd, raw0=raw0), raw)
+    for lo, hi in CB._channel_groups(sem_dim, group):    # lone group runs
+        lone = fwd(CB._group_rows(feat, sem_dim, lo, hi))
+        assert torch.equal(lone[..., 3:3 + hi - lo], raw[..., 3 + lo:3 + hi])
+
+    grad = torch.as_tensor(np.random.default_rng(sem_dim).normal(
+        0, 1, raw.shape).astype(np.float32))
+    rows = CB.blend_bwd_plain(feat, st, en, raw, grad, gx)
+    got = CB._bwd_in_groups(
+        feat, raw, grad, group,
+        lambda f, r, g: CB.blend_bwd_plain(f, st, en, r, g, gx))
+    assert got.shape == rows.shape
+    peak = float(rows.abs().max())
+    assert peak > 0
+    assert float((got - rows).abs().max()) <= 1e-5 * peak
+    # the semantic, rgb and depth rows come from one group each
+    assert torch.allclose(got[:, 6:], rows[:, 6:], rtol=1e-5,
+                          atol=1e-6 * peak)
+
+
+def test_render_and_backward_at_sem_dim_80_match_xla():
+    """S = 80 (past the card's widest instance; in channel groups there)
+    on the CPU: the render against goi_tpu's xla backend at 5e-5, and
+    the gradients of a seeded linear loss on every output at
+    tests/test_pallas_blend.py's gradient bar (2e-3 / 2e-4)."""
+    s_dim = 80
+    js = make_random_scene(n=200, seed=8, sem_dim=s_dim)
+    jc = make_test_camera(width=48, height=32, angle=0.5)
+    bg = np.array([0.1, 0.3, 0.2], np.float32)
+    rng = np.random.default_rng(80)
+    wts = {k: rng.normal(0, 1, shape).astype(np.float32)
+           for k, shape in (("render", (3, 32, 48)),
+                            ("semantics", (s_dim, 32, 48)),
+                            ("depth", (1, 32, 48)))}
+    jcfg = JConfig(max_instances=1 << 14)
+
+    def jloss(params):
+        out = jrender(js.with_params(params), jc, jnp.asarray(bg), jcfg)
+        return sum(jnp.sum(out[k] * wts[k]) for k in wts), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, has_aux=True)(js.params())
+    ts = to_torch_scene(js)
+    leaves = {k: v.clone().requires_grad_() for k, v in ts.params().items()}
+    out = render(ts.with_params(leaves), to_torch_camera(jc),
+                 torch.as_tensor(bg), RasterConfig(max_instances=1 << 14))
+    sum((out[k] * torch.as_tensor(wts[k])).sum() for k in wts).backward()
+    assert out["semantics"].shape == (s_dim, 32, 48)
+    for k in ("render", "semantics", "depth", "alpha"):
+        np.testing.assert_allclose(out[k].detach().numpy(),
+                                   np.asarray(jout[k]), err_msg=k, **TOL)
+    for k, g in jgrads.items():
+        np.testing.assert_allclose(leaves[k].grad.numpy(), np.asarray(g),
+                                   err_msg=k, **GRAD_TOL)
 
 
 def _first_by_search(p, nb, blk):
