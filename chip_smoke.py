@@ -69,9 +69,23 @@ exits non-zero without the final result line:
    the bytes written; it fails if a CLI exits non-zero, the triplet does
    not reload, the PSNR is not finite or <= 25 dB or the mIoU is outside
    [0, 1];
-10. a JSON line with every ported kernel's launches (those of the CLIs'
-   processes included), error, times and bound; then the final JSON
-   line.
+10. [rgb] RGB training at full width: the main-path scene's renders of
+   RGB_VIEWS orbit views (the last held out), train_rgb for RGB_ITERS
+   steps from every second GT Gaussian's xyz plus noise at a capacity
+   with no free row; before it, one step's gradients (7 attributes and
+   mean2d) bit-identical over two backward passes and with
+   dense_reduce=True, and a small scene's step on the card against the
+   CPU at GRAD_TOL; it fails on a non-finite loss or gnorm, no capacity
+   growth, a held-out PSNR that does not rise, or a step past its
+   budget with no rebudget in its own or the next iteration; step
+   p50/p95, densify and grow_capacity times, regrowths, rebudgets,
+   n_valid and capacity, peak memory, PSNR, one profiled step;
+11. [pipeline] python -m goi_tpu_torch.examples.full_pipeline_demo
+   --fast as a subprocess: PIPELINE COMPLETE, finite PSNR, mIoU and OSH
+   IoU, its stage seconds and kernel launches;
+12. a JSON line with every ported kernel's launches (those of the CLIs'
+   and the demo's processes included), error, times and bound; then the
+   final JSON line.
 """
 
 import copy
@@ -142,6 +156,19 @@ CLI_NOISE = 0.02
 CLI_PROTOS = 2
 CLI_SFM_POINTS = 5000
 CLI_MIN_PSNR = 25.0
+# [rgb]: RGB training from RGB_VIEWS - 1 renders of the main-path scene
+# (the last view held out), started from every second GT Gaussian's xyz
+# plus N(0, RGB_NOISE) noise at a capacity with no free row, so that the
+# first densify overflows and the capacity grows; the schedule below
+RGB_VIEWS = 4
+RGB_NOISE = 0.02
+RGB_ITERS = 150
+RGB_SCHEDULE = dict(densify_from_iter=20, densification_interval=20,
+                    densify_until_iter=120, opacity_reset_interval=100,
+                    position_lr_max_steps=RGB_ITERS)
+# tests/test_torch_train.py's GRAD_TOL (rtol, atol): a small scene's RGB
+# step on the card against the CPU's
+GRAD_TOL = (2e-3, 2e-4)
 
 
 def log(*a):
@@ -1197,7 +1224,7 @@ def look_at_pose(eye):
 
 def run_cli(module, args, cwd):
     """`python -m module args` with check=True; returns (wall seconds,
-    the summary line's dict)."""
+    the summary line's dict, the standard output)."""
     t0 = time.perf_counter()
     try:
         proc = subprocess.run([sys.executable, "-m", module, *args],
@@ -1212,7 +1239,7 @@ def run_cli(module, args, cwd):
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
     if len(lines) != 1:
         raise AssertionError(f"[cli] {module}: no summary line")
-    return wall, json.loads(lines[0][len(tag):])
+    return wall, json.loads(lines[0][len(tag):]), proc.stdout
 
 
 def cli_phase():
@@ -1302,7 +1329,7 @@ def cli_phase():
                 ("metrics", ["-m", model])]
         summaries = {}
         for name, args in runs:
-            wall, summ = run_cli(f"goi_tpu_torch.{name}", args, repo)
+            wall, summ, _ = run_cli(f"goi_tpu_torch.{name}", args, repo)
             summaries[name] = summ
             for k, n in summ["launches"].items():
                 launches[k] = launches.get(k, 0) + n
@@ -1365,7 +1392,7 @@ def cli_phase():
         for k, n in read_counts().items():
             launches[k] = launches.get(k, 0) + n
         del sess, trained
-        wall, summ = run_cli("goi_tpu_torch.eval_seg", [
+        wall, summ, _ = run_cli("goi_tpu_torch.eval_seg", [
             "-e", os.path.join(root, "seg_gt"), "-s",
             os.path.join(root, "seg_pred"), "--scene_list", "synthetic",
             "-d", "m360"], repo)
@@ -1384,6 +1411,284 @@ def cli_phase():
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def rgb_grads(state, cam, gt, bg, cfg, lambda_dssim):
+    """The gradients of one RGB step's loss (no update): the seven
+    attributes' and mean2d's, through a zero mean2d offset."""
+    import torch
+    from goi_tpu_torch.train.rgb import rgb_loss
+    params = list(state.scene.params().values())
+    for p in params:
+        p.grad = None
+    offset = torch.zeros((state.scene.capacity, 2),
+                         device=state.scene.device, requires_grad=True)
+    loss, _ = rgb_loss(state.scene, cam, gt, bg, cfg, lambda_dssim,
+                       mean2d_offset=offset)
+    loss.backward()
+    grads = [p.grad.clone() for p in params] + [offset.grad]
+    for p in params:
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def small_rgb_check():
+    """A small scene's RGB step on the card against the same step on the
+    CPU: the loss (rel 1e-4) and the gradients of the seven attributes
+    and of mean2d at GRAD_TOL."""
+    import torch
+    from goi_tpu_torch.raster.render import RasterConfig, render
+    from goi_tpu_torch.train.optim import OptimConfig
+    from goi_tpu_torch.train.rgb import create_rgb_trainer
+    cfg = RasterConfig(max_instances=1 << 15)
+    target = make_scene(2000, seed=5, device="cpu")
+    tiny = make_scene(2000, seed=3, device="cpu")
+    with torch.no_grad():
+        gt = render(target, orbit_cams(96, 64, 1, "cpu", dist=4.0)[0],
+                    torch.zeros(3), cfg)["render"]
+    ocfg = OptimConfig()
+    got = []
+    for dev in ("cuda", "cpu"):
+        init_fn, _, _ = create_rgb_trainer(ocfg, cfg)
+        state = init_fn(tiny.to(dev))
+        cam = orbit_cams(96, 64, 1, dev, dist=4.0)[0]
+        loss, grads = rgb_grads(state, cam, gt.to(dev),
+                                torch.zeros(3, device=dev), cfg,
+                                ocfg.lambda_dssim)
+        got.append((loss, [g.cpu() for g in grads]))
+    (loss_g, g_g), (loss_c, g_c) = got
+    if not math.isclose(loss_g, loss_c, rel_tol=1e-4):
+        raise AssertionError(f"[rgb] small scene loss: card {loss_g} vs "
+                             f"CPU {loss_c}")
+    worst = 0.0
+    for a, b in zip(g_g, g_c):
+        if not torch.allclose(a, b, rtol=GRAD_TOL[0], atol=GRAD_TOL[1]):
+            raise AssertionError(f"[rgb] small scene gradients card vs CPU:"
+                                 f" {float((a - b).abs().max())}")
+        worst = max(worst, float((a - b).abs().max()))
+    log(f"[rgb] small scene: an RGB step's loss and {len(g_g)} gradient "
+        f"tensors (7 attributes + mean2d) on the card match the CPU's at "
+        f"GRAD_TOL rtol {GRAD_TOL[0]} atol {GRAD_TOL[1]} (max diff "
+        f"{worst:.2e})")
+
+
+def camera_extent(cams) -> float:
+    """The reference's scene extent: 1.1 x the largest distance of a
+    camera centre from their mean (data/readers.get_nerfpp_norm)."""
+    import torch
+    centers = torch.stack([c.camera_center for c in cams]).double()
+    return float(1.1 * (centers - centers.mean(0)).norm(dim=1).max())
+
+
+def rgb_phase():
+    """[rgb]: RGB training with densification at full width. Returns the
+    kernel launches of train_rgb's run."""
+    import dataclasses
+    import torch
+    from goi_tpu_torch.core.scene import GaussianScene
+    from goi_tpu_torch.eval.metrics import psnr
+    from goi_tpu_torch.raster.render import (RasterConfig, _effective_reduce,
+                                             render, suggest_budgets)
+    from goi_tpu_torch.train import rgb
+    from goi_tpu_torch.train.optim import OptimConfig
+    t_phase = time.perf_counter()
+    bg = torch.zeros(3, device="cuda")
+    cams = orbit_cams(WIDTH, HEIGHT, RGB_VIEWS, "cuda")
+    train_cams, held = cams[:-1], cams[-1]
+    gt_scene = make_scene(N_GAUSS, seed=0, device="cuda")
+    gt_cfg = RasterConfig(max_instances=suggest_budgets(
+        gt_scene, cams, margin=1.2)[0])
+    with torch.no_grad():
+        images = [render(gt_scene, c, bg, gt_cfg)["render"] for c in cams]
+    rng = np.random.default_rng(23)
+    pts = gt_scene.xyz[::2].cpu().numpy()
+    pts = pts + rng.normal(0, RGB_NOISE, pts.shape).astype(np.float32)
+    del gt_scene
+    start = GaussianScene.create(pts, None, sh_degree=3, sem_dim=SEM_DIM,
+                                 device="cuda")
+    cfg = RasterConfig(max_instances=suggest_budgets(
+        start, train_cams, margin=1.2)[0])
+    if _effective_reduce(cfg) != "chain":
+        raise AssertionError(f"[rgb] reduce resolves to "
+                             f"{_effective_reduce(cfg)}")
+    extent = camera_extent(train_cams)
+    ocfg = OptimConfig(iterations=RGB_ITERS, **RGB_SCHEDULE)
+    with torch.no_grad():
+        psnr0 = float(psnr(render(start, held, bg, cfg)["render"],
+                           images[-1]))
+    log(f"[rgb] {RGB_VIEWS} views of the {N_GAUSS}-Gaussian scene at "
+        f"{WIDTH}x{HEIGHT} ({RGB_VIEWS - 1} train, 1 held out); start "
+        f"{start.capacity} points (every second GT xyz + N(0, {RGB_NOISE}))"
+        f", capacity {start.capacity}, budget {cfg.max_instances} "
+        f"(suggest_budgets x 1.2, reduce chain), extent {extent:.3f}")
+
+    # one full-width step: bit-identical gradients over two backward
+    # passes and with the fused reduce
+    init_fn, _, _ = rgb.create_rgb_trainer(ocfg, cfg, extent)
+    state = init_fn(start)
+    lam = ocfg.lambda_dssim
+    _, g1 = rgb_grads(state, train_cams[0], images[0], bg, cfg, lam)
+    _, g2 = rgb_grads(state, train_cams[0], images[0], bg, cfg, lam)
+    if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+        raise AssertionError("[rgb] gradients differ between two backward "
+                             "passes")
+    _, g3 = rgb_grads(state, train_cams[0], images[0], bg,
+                      dataclasses.replace(cfg, dense_reduce=True), lam)
+    if not all(torch.equal(a, b) for a, b in zip(g1, g3)):
+        raise AssertionError("[rgb] gradients with dense_reduce differ")
+    log(f"[rgb] one step's gradients (7 attributes + mean2d, "
+        f"{sum(g.numel() for g in g1)} values) bit-identical over two "
+        f"backward passes and with dense_reduce=True")
+    del state, g1, g2, g3
+    small_rgb_check()
+
+    # train_rgb, timed from outside: its densify, capacity growth and
+    # rebudget are wrapped where the loop calls them
+    timings = {"densify": [], "grow": [], "rebudget": []}
+    iters = []          # (it, wall ms, loss, gnorm, slots, ninst, cap)
+    wrapped = {name: getattr(rgb, name) for name in
+               ("densify_and_prune", "grow_capacity", "_rebudget")}
+
+    def timed(name, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = wrapped[name](*a, **kw)
+            torch.cuda.synchronize()
+            timings[key].append((len(iters) + 1,
+                                 (time.perf_counter() - t0) * 1e3, out))
+            return out
+        return run
+
+    t_last = [0.0]
+
+    def callback(it, state, aux):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        iters.append((it, (t - t_last[0]) * 1e3, float(aux["loss"]),
+                      float(aux["gnorm"]), int(aux["num_slots"]),
+                      int(aux["num_instances"]), state.scene.capacity))
+        t_last[0] = time.perf_counter()
+
+    for name, key in (("densify_and_prune", "densify"),
+                      ("grow_capacity", "grow"), ("_rebudget", "rebudget")):
+        setattr(rgb, name, timed(name, key))
+    n_start = int(start.num_valid)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_last[0] = t_train = time.perf_counter()
+    try:
+        state, rcfg = rgb.train_rgb(
+            start, train_cams, images[:-1], cfg=ocfg, raster_cfg=cfg,
+            iterations=RGB_ITERS, scene_extent=extent, log_every=50,
+            callback=callback, return_raster_cfg=True)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(rgb, name, fn)
+    train_s = time.perf_counter() - t_train
+    launches = {k: n for k, n in read_counts().items()
+                if k in ("gather", "blend", "blend_bwd", "prefix")}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    losses = np.array([r[2] for r in iters])
+    gnorms = np.array([r[3] for r in iters])
+    if len(iters) != RGB_ITERS or not (np.isfinite(losses).all()
+                                       and np.isfinite(gnorms).all()):
+        raise AssertionError("[rgb] a non-finite loss or gnorm")
+    if not timings["grow"]:
+        raise AssertionError("[rgb] the capacity never grew")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[rgb] a kernel was not launched: {launches}")
+    # every step past its budget was followed by a rebudget by the next
+    # step: in its own iteration (the check of the step before it, which
+    # ran past the budget too) or in the next one (one step of slack),
+    # or in the final fold after the last step
+    fired = {it: out.max_instances for it, _, out in timings["rebudget"]}
+    budget = cfg.max_instances
+    for it, _, _, _, slots, ninst, _ in iters:
+        if max(slots, ninst) > budget and not {it, it + 1} & set(fired):
+            raise AssertionError(f"[rgb] step {it} demanded "
+                                 f"{max(slots, ninst)} > {budget} and no "
+                                 f"rebudget followed")
+        budget = fired.get(it, budget)
+    if rcfg.max_instances != max([cfg.max_instances] + list(fired.values())):
+        raise AssertionError("[rgb] return_raster_cfg is not the grown "
+                             "config")
+    with torch.no_grad():
+        psnr1 = float(psnr(render(state.scene, held, bg, rcfg)["render"],
+                           images[-1]))
+    if not psnr1 > psnr0:
+        raise AssertionError(f"[rgb] held-out PSNR did not rise: {psnr0} "
+                             f"-> {psnr1}")
+
+    # step-only iterations: no densify, capacity growth or rebudget
+    busy = {it for key in timings for it, _, _ in timings[key]}
+    busy |= {it for it in range(1, RGB_ITERS + 1)
+             if it % ocfg.opacity_reset_interval == 0}
+    step_ms = [r[1] for r in iters if r[0] not in busy and r[0] > 1]
+    p50, p95 = np.percentile(step_ms, [50, 95])
+    dens_ms = [ms for _, ms, _ in timings["densify"]]
+    dens_info = ", ".join(
+        f"{it}: +{int(out[3]['n_clone'])}c +{int(out[3]['n_split'])}s "
+        f"-{int(out[3]['n_pruned'])}p ={int(out[3]['n_valid'])}"
+        for it, _, out in timings["densify"])
+    grow = [(it, ms, out[0].capacity) for it, ms, out in timings["grow"]]
+    log(f"[rgb] train_rgb {RGB_ITERS} iterations in {train_s:.1f} s: step "
+        f"p50 {p50:.1f} ms, p95 {p95:.1f} ms ({len(step_ms)} step-only "
+        f"iterations); densify x{len(dens_ms)} p50 "
+        f"{np.percentile(dens_ms, 50):.1f} ms; grow_capacity x{len(grow)} "
+        + ", ".join(f"at {it} -> {cap} in {ms:.1f} ms"
+                    for it, ms, cap in grow)
+        + f"; rebudgets x{len(fired)} "
+        + ", ".join(f"at {it} -> {mi}" for it, mi in fired.items()))
+    log(f"[rgb] densify (clones, splits, pruned incl. free rows, valid): "
+        f"{dens_info}")
+    log(f"[rgb] n_valid {n_start} -> {int(state.scene.num_valid)}, capacity "
+        f"{start.capacity} -> {state.scene.capacity}; budget "
+        f"{cfg.max_instances} -> {rcfg.max_instances}; peak memory "
+        f"{peak_gb:.2f} GiB; held-out PSNR {psnr0:.3f} -> {psnr1:.3f} dB; "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}")
+    log(f"[rgb] losses every 10: "
+        f"{' '.join(f'{x:.4f}' for x in losses[::10])}; gnorm max "
+        f"{gnorms.max():.3e}")
+
+    # one profiled step on the trained scene
+    _, step_fn, _ = rgb.create_rgb_trainer(ocfg, rcfg, extent)
+    profile(lambda: step_fn(state, train_cams[0], images[0], bg),
+            "RGB step", top=15)
+    log(f"[rgb] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def pipeline_phase():
+    """[pipeline]: the port's full-pipeline demo (--fast) as a subprocess
+    on the card. Returns its kernel launches."""
+    import os
+    repo = os.path.dirname(os.path.abspath(__file__))
+    module = "goi_tpu_torch.examples.full_pipeline_demo"
+    wall, summ, out = run_cli(module, ["--fast"], repo)
+    if "PIPELINE COMPLETE" not in out.splitlines():
+        raise AssertionError("[pipeline] no PIPELINE COMPLETE line")
+    for line in out.splitlines():
+        if line.startswith("[") and ("RGB training" in line or
+                                     "query eval" in line or
+                                     "OSH finetune" in line):
+            log(f"[pipeline] {line}")
+    nums = {k: summ[k] for k in ("psnr", "miou", "osh_iou")}
+    if not all(math.isfinite(v) for v in nums.values()):
+        raise AssertionError(f"[pipeline] a non-finite result: {nums}")
+    if min(summ["launches"][k] for k in ("gather", "blend", "blend_bwd",
+                                         "prefix")) <= 0:
+        raise AssertionError(f"[pipeline] a kernel was not launched: "
+                             f"{summ['launches']}")
+    split = ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in summ.items()
+                      if k.endswith("_s"))
+    log(f"[pipeline] python -m {module} --fast: {wall:.1f} s wall "
+        f"({split}); PSNR {nums['psnr']:.3f} dB, mIoU {nums['miou']:.4f}, "
+        f"OSH IoU {nums['osh_iou']:.4f} in {summ['osh_epochs']} epochs, "
+        f"{summ['n_gaussians']} Gaussians; launches {summ['launches']}")
+    return summ["launches"]
 
 
 def main() -> int:
@@ -1549,7 +1854,17 @@ def main() -> int:
     for k, n in cli_phase().items():
         launches[k] = launches.get(k, 0) + n
 
-    # ---- 10. kernels line, result ----
+    # ---- 10. RGB training with densification ----
+    torch.cuda.empty_cache()
+    for k, n in rgb_phase().items():
+        launches[k] = launches.get(k, 0) + n
+
+    # ---- 11. the full-pipeline demo ----
+    torch.cuda.empty_cache()
+    for k, n in pipeline_phase().items():
+        launches[k] = launches.get(k, 0) + n
+
+    # ---- 12. kernels line, result ----
     kernels = [
         dict(name="expand_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",

@@ -1,31 +1,36 @@
 """Headless query/editing session: the GUI's model-side logic.
 
-Counterpart of goi_tpu/app/session.py (inference half):
+Counterpart of goi_tpu/app/session.py:
 
 - per-frame render + open-vocabulary similarity overlay
   (ref:gui/main.py:549-604 test_step, :363-398 compute_similarity)
 - 3D retrieval / segmentation / deletion / move via per-Gaussian
   similarity and a motion vector (ref:gui/main.py:400-405,516-531,
   1168-1227)
+- OSH fine-tuning from a RES mask (ref:gui/main.py:1673-1763)
+- query masks on disk and their scores against ground-truth masks
+  (ref:gui/main.py:1938-2016, gui/main_test.py:628-687)
 
-A frame is an eager sequence of launches on the session's device. OSH
-fine-tuning from a RES mask, DBSCAN grouping and video paths are not
-ported yet.
+A frame is an eager sequence of launches on the session's device.
+DBSCAN grouping and video paths are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from goi_tpu_torch.core.scene import GaussianScene
-from goi_tpu_torch.query.osh import OSHState, osh_predict
+from goi_tpu_torch.eval.metrics import iou_metrics
+from goi_tpu_torch.query.osh import (OSHState, osh_finetune, osh_init,
+                                     osh_predict)
 from goi_tpu_torch.query.similarity import ape_similarity
 from goi_tpu_torch.raster.render import RasterConfig, render
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
-from goi_tpu_torch.utils.image import turbo_colormap
+from goi_tpu_torch.utils.image import save_image, turbo_colormap
 
 
 def _normed_codebook_features(decoder, lut, features):
@@ -165,6 +170,30 @@ class QuerySession:
                      log_scale=float(self.log_scale), as_u8=as_u8)
         return img.cpu().numpy()
 
+    # ---- OSH fine-tune (ref:gui/main.py:1673-1763) ----
+    def finetune_with_res(self, cam, res_mask: np.ndarray,
+                          max_epochs: int = 8000):
+        """Fit the OSH hyperplane, initialized from the text embedding,
+        to a RES mask of the view `cam`; the overlay then uses it.
+        Returns (IoU, epochs)."""
+        if self.text_tokens is None:
+            raise ValueError("set_text first (OSH inits from the text "
+                             "embedding, ref:gui/main.py:1678-1680)")
+        with torch.no_grad():
+            out = render(self.scene, cam.to(self.device), self.bg,
+                         self.raster_cfg)
+            s = out["semantics"].shape[0]
+            normed = _normed_codebook_features(
+                self.decoder, self.lut, out["semantics"].reshape(s, -1).T)
+        self.osh = osh_init(self.text_tokens)
+        self.osh, iou, epochs = osh_finetune(
+            self.osh, normed,
+            torch.as_tensor(np.asarray(res_mask).reshape(-1),
+                            device=self.device),
+            max_epochs=max_epochs)
+        self.res_finetuned = True
+        return float(iou), int(epochs)
+
     # ---- 3D retrieval / editing ----
     def compute_relative_gs_index(self) -> np.ndarray:
         """Per-Gaussian membership of the current query
@@ -208,3 +237,38 @@ class QuerySession:
                                                  device=self.device))
         self.motion = np.zeros_like(self.motion)
         self.gs_index = None
+
+    # ---- eval (ref:gui/main.py:1938-2016, gui/main_test.py:628-687) ----
+    @torch.no_grad()
+    def _query_mask(self, cam) -> torch.Tensor:
+        out = render(self.scene, cam.to(self.device), self.bg,
+                     self.raster_cfg)
+        s = out["semantics"].shape[0]
+        sim = self.compute_similarity(out["semantics"].reshape(s, -1).T)
+        return (sim > 0).reshape(cam.height, cam.width)
+
+    def render_query_masks(self, cameras, out_dir: str,
+                           names: Optional[List[str]] = None) -> list:
+        """Render the current query's binary masks for each camera and
+        save them as PNGs, the artifact eval_seg scores (white = match).
+        Returns the paths."""
+        os.makedirs(out_dir, exist_ok=True)
+        paths = []
+        for i, cam in enumerate(cameras):
+            name = names[i] if names else f"{i:05d}"
+            p = os.path.join(out_dir, f"{name}.png")
+            save_image(self._query_mask(cam).to(torch.float32)[None], p)
+            paths.append(p)
+        return paths
+
+    def eval_against_gt(self, cameras, gt_masks) -> dict:
+        """mIoU / mPA / mP of the current query against ground-truth
+        masks, averaged over the views (ref:gui/main_test.py:628-687
+        eval_epoch)."""
+        agg = {"iou": [], "mpa": [], "mp": []}
+        for cam, gt in zip(cameras, gt_masks):
+            m = iou_metrics(self._query_mask(cam), torch.as_tensor(
+                np.asarray(gt) > 0, device=self.device))
+            for k in agg:
+                agg[k].append(float(m[k]))
+        return {k: float(np.mean(v)) for k, v in agg.items()}

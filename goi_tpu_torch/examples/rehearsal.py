@@ -8,9 +8,9 @@ modules and entry points only:
      the PSNR of the GT scene's renders is finite; clip_feat/ APE maps
      as .npy; per-prompt GT masks) and write a COLMAP scene (sparse/0
      binaries);
-  2. save the GT scene as point_cloud/iteration_1 (the reference trains
-     RGB first and distils from iteration 1; RGB training is not ported
-     yet, so the GT scene stands in for its result);
+  2. RGB pre-training (the reference trains RGB first and distils from
+     iteration 1): a Scene created from the noisy SfM points, trained
+     with train_rgb and saved as point_cloud/iteration_1;
   3. `python -m goi_tpu_torch.train`: distillation -> PLY + decoder +
      LUT triplet;
   4. `goi_tpu_torch.render` -> renders/ + gt/;
@@ -157,15 +157,17 @@ def main(argv=None):
     from goi_tpu_torch.raster.render import (RasterConfig, render,
                                              suggest_budgets)
     from goi_tpu_torch.train.__main__ import main as train_main
+    from goi_tpu_torch.train.optim import OptimConfig
+    from goi_tpu_torch.train.rgb import train_rgb
     from goi_tpu_torch.utils.image import save_image
 
     device = _cli.resolve_device(args.device)
     if args.fast:
         n_gauss, size, n_views = 4000, 64, 8
-        distill_iters, ape_dim, tab_len = 40, 16, 16
+        rgb_iters, distill_iters, ape_dim, tab_len = 60, 40, 16, 16
     else:
         n_gauss, size, n_views = 80_000, 256, 16
-        distill_iters, ape_dim, tab_len = 600, 32, 32
+        rgb_iters, distill_iters, ape_dim, tab_len = 2000, 600, 32, 32
     if args.n:
         n_gauss = args.n
     w = h = size
@@ -218,10 +220,28 @@ def main(argv=None):
                        os.path.join(mdir, f"view_{i:03d}.png"))
     print(f"[1/6] dataset written: {scene_dir}", flush=True)
 
-    # ---- 2. the GT scene as iteration 1 ------------------------------
-    triplet.save(os.path.join(model_dir, "point_cloud", "iteration_1"),
-                 gt_scene)
-    print("[2/6] GT scene saved as iteration_1", flush=True)
+    # ---- 2. RGB pre-training (iteration_1 convention) ---------------
+    mp = ModelParams(source_path=scene_dir, model_path=model_dir,
+                     eval=True, ape_dim=ape_dim, tab_len=tab_len,
+                     sh_degree=0)
+    pre = Scene(mp, device=device)
+    train_ids = [i for i in range(n_views) if i % 8 != 0]
+    ocfg = OptimConfig(iterations=rgb_iters,
+                       position_lr_max_steps=rgb_iters,
+                       densify_until_iter=int(rgb_iters * 0.65))
+    state, rcfg = train_rgb(
+        pre.gaussians, [cams[i] for i in train_ids],
+        [images[i] for i in train_ids], cfg=ocfg, raster_cfg=cfg,
+        iterations=rgb_iters,
+        scene_extent=pre.info.nerf_normalization["radius"],
+        log_every=max(rgb_iters // 4, 1), return_raster_cfg=True)
+    pre.gaussians = state.scene
+    pre.save(1)
+    rgb_gaussians = int(state.scene.num_valid)
+    # the later stages' budget covers what the training grew to
+    mi = rcfg.max_instances
+    print(f"[2/6] RGB pre-train done ({rgb_iters} iters, "
+          f"{rgb_gaussians} Gaussians)", flush=True)
 
     # ---- 3. distillation through the train CLI -----------------------
     dev = ["--device", str(device)]
@@ -244,11 +264,9 @@ def main(argv=None):
     print(f"[4-5/6] render+metrics: PSNR {psnr:.2f}", flush=True)
 
     # ---- 6. open-vocabulary query -> masks -> eval_seg CLI ----------
-    mp = ModelParams(source_path=scene_dir, model_path=model_dir,
-                     eval=True, ape_dim=ape_dim, tab_len=tab_len,
-                     sh_degree=0)
     trained = Scene(mp, load_iteration=distill_iters, device=device)
     decoder, lut = Scene.load_semantics(pc_dir, device=device)
+    cfg = RasterConfig(max_instances=mi)
     sess = QuerySession(trained.gaussians, decoder, lut, cfg,
                         sim_thresh=0.86, white_background=False,
                         device=device)
@@ -271,6 +289,7 @@ def main(argv=None):
 
     summary = {
         "config": {"n_gauss": n_gauss, "size": size, "n_views": n_views,
+                   "rgb_iters": rgb_iters, "rgb_gaussians": rgb_gaussians,
                    "distill_iters": distill_iters,
                    "device": str(device)},
         "psnr": round(float(psnr), 3),

@@ -1,8 +1,10 @@
 """Carry weights across from the JAX package.
 
 Plain functions that take numpy arrays (a JAX object's leaves after
-`np.asarray`) and build the port's objects on `device`. They import
-nothing of the JAX package, so the port runs where JAX is absent.
+`np.asarray`) and build the port's objects on `device`, or load them
+into an object of the port (an optax Adam state into a torch Adam).
+They import nothing of the JAX package, so the port runs where JAX is
+absent.
 """
 
 from __future__ import annotations
@@ -64,3 +66,18 @@ def lut_from_numpy(lut: np.ndarray, device="cuda") -> torch.Tensor:
 def osh_from_numpy(weight: np.ndarray, bias, device="cuda") -> OSHState:
     return OSHState(weight=_t(np.asarray(weight, np.float32), device),
                     bias=_t(np.asarray(bias, np.float32), device))
+
+
+def adam_state_from_numpy(opt: torch.optim.Adam,
+                          groups: Mapping[str, Mapping]) -> None:
+    """Load optax Adam states into `opt`, a torch Adam with one named
+    parameter per group (train/optim.py's optimizers): groups maps a
+    group's name to its optax `mu`, `nu` (arrays) and `count`, which
+    become the parameter's `exp_avg`, `exp_avg_sq` and `step`."""
+    by_name = {g["name"]: g["params"] for g in opt.param_groups}
+    for name, st in groups.items():
+        (p,) = by_name[name]
+        opt.state[p] = {
+            "step": torch.tensor(float(st["count"]), dtype=torch.float32),
+            "exp_avg": _t(np.asarray(st["mu"], np.float32), p.device),
+            "exp_avg_sq": _t(np.asarray(st["nu"], np.float32), p.device)}

@@ -7,6 +7,8 @@ on xyz, and per-attribute finetune toggles (GOI's semantic distillation
 trains only `semantics` by default, ref:arguments/__init__.py:85-90).
 Where the JAX package zeroes the update of an attribute whose flag is
 off, the port leaves it out of the optimizer and out of autograd.
+`make_full_training_optimizer` turns every attribute on, for RGB
+training (train/rgb.py).
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ import torch
 class OptimConfig:
     """OptimizationParams (ref:arguments/__init__.py:64-91), with the JAX
     package's names and defaults. Distillation reads `iterations`, the
-    learning rates and the finetune toggles; the densification and
-    RGB-loss fields belong to RGB training, which is not ported yet."""
+    learning rates and the finetune toggles; RGB training (train/rgb.py)
+    reads the densification and RGB-loss fields as well, with every
+    toggle on."""
 
     iterations: int = 1500
     position_lr_init: float = 0.00016
@@ -51,24 +54,38 @@ class OptimConfig:
     semantic_finetune: bool = True
 
 
-def expon_lr_schedule(lr_init, lr_final, max_steps, lr_delay_steps=0,
-                      lr_delay_mult=1.0) -> Callable[[int], float]:
+@dataclasses.dataclass(frozen=True)
+class ExponLR:
     """Log-linear interpolation with optional delayed warmup, matching
-    get_expon_lr_func (ref:utils/general_utils.py:98-121)."""
+    get_expon_lr_func (ref:utils/general_utils.py:98-121). A plain
+    dataclass, so that an optimizer's param group that holds one can be
+    written to a checkpoint (train/checkpoint.py) as its fields."""
 
-    def schedule(step: int) -> float:
-        if lr_init == 0.0 and lr_final == 0.0:
+    lr_init: float
+    lr_final: float
+    max_steps: int
+    lr_delay_steps: int = 0
+    lr_delay_mult: float = 1.0
+
+    def __call__(self, step: int) -> float:
+        if self.lr_init == 0.0 and self.lr_final == 0.0:
             return 0.0
-        if lr_delay_steps > 0:
-            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * math.sin(
-                0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0))
+        if self.lr_delay_steps > 0:
+            delay_rate = self.lr_delay_mult + (
+                1 - self.lr_delay_mult) * math.sin(0.5 * math.pi * min(
+                    max(step / self.lr_delay_steps, 0.0), 1.0))
         else:
             delay_rate = 1.0
-        t = min(max(step / max_steps, 0.0), 1.0)
-        return delay_rate * math.exp(math.log(lr_init) * (1 - t)
-                                     + math.log(lr_final) * t)
+        t = min(max(step / self.max_steps, 0.0), 1.0)
+        return delay_rate * math.exp(math.log(self.lr_init) * (1 - t)
+                                     + math.log(self.lr_final) * t)
 
-    return schedule
+
+def expon_lr_schedule(lr_init, lr_final, max_steps, lr_delay_steps=0,
+                      lr_delay_mult=1.0) -> Callable[[int], float]:
+    """The xyz schedule (ref:utils/general_utils.py:98-121)."""
+    return ExponLR(lr_init, lr_final, max_steps, lr_delay_steps,
+                   lr_delay_mult)
 
 
 def scene_learning_rates(cfg: OptimConfig, spatial_lr_scale: float) -> dict:
@@ -108,6 +125,18 @@ def make_scene_optimizer(cfg: OptimConfig, spatial_lr_scale: float,
     if not groups:
         return None
     return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-15)
+
+
+def make_full_training_optimizer(cfg: OptimConfig, spatial_lr_scale: float,
+                                 params: dict) -> torch.optim.Adam:
+    """All-attribute optimizer for from-scratch RGB training
+    (training_setup, ref:scene/gaussian_model.py:163-182): every
+    finetune toggle on, the xyz schedule scaled by spatial_lr_scale."""
+    full = dataclasses.replace(
+        cfg, position_finetune=True, feature_finetune=True,
+        opacity_finetune=True, scaling_finetune=True,
+        rotation_finetune=True, semantic_finetune=True)
+    return make_scene_optimizer(full, spatial_lr_scale, params)
 
 
 def set_scheduled_lr(opt: Optional[torch.optim.Optimizer],

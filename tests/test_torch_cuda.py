@@ -569,6 +569,43 @@ def test_prefix_boundary_kernel_bit_identical(cuda, m, d, repeat):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
 
 
+def _rgb_grads(scene, cam, gt, cfg):
+    """The gradients of an RGB step's loss (7 attributes and mean2d)."""
+    from goi_tpu_torch.train.rgb import create_rgb_trainer, rgb_loss
+    init_fn, _, _ = create_rgb_trainer(OptimConfig(), cfg)
+    state = init_fn(scene)
+    offset = torch.zeros((scene.capacity, 2), device=scene.device,
+                         requires_grad=True)
+    loss, _ = rgb_loss(state.scene, cam, gt, torch.zeros(3, device=cam
+                       .full_proj.device), cfg, 0.2, mean2d_offset=offset)
+    loss.backward()
+    assert torch.isfinite(loss)
+    return [p.grad for p in state.scene.params().values()] + [offset.grad]
+
+
+def test_rgb_step_grads_on_card_bit_identical(cuda):
+    """An RGB step (L1 + SSIM through every attribute and mean2d) at a
+    100k-Gaussian scene: the same bits over two backward passes and with
+    the fused reduce."""
+    from goi_tpu_torch.raster.render import suggest_budgets
+    scene = _scene(100_000, 10, 11, cuda)
+    cam = _cam(cuda, 640, 480)
+    with torch.no_grad():
+        gt = render(_scene(100_000, 10, 12, cuda), cam,
+                    torch.zeros(3, device=cuda),
+                    RasterConfig(max_instances=1 << 21))["render"]
+    cfg = RasterConfig(max_instances=max(
+        suggest_budgets(scene, cam, margin=1.2)[0], 1 << 19))
+    first = _rgb_grads(scene, cam, gt, cfg)
+    second = _rgb_grads(scene, cam, gt, cfg)
+    dense = _rgb_grads(scene, cam, gt, RasterConfig(
+        max_instances=cfg.max_instances, dense_reduce=True))
+    for i, (a, b, c) in enumerate(zip(first, second, dense)):
+        assert torch.equal(a, b), i
+        assert torch.equal(a, c), i
+    assert any(bool(g.any()) for g in first)
+
+
 def test_dense_reduce_grads_on_card_bit_identical(cuda):
     scene = _scene(3000, 10, 7, cuda)
     cfg = RasterConfig(max_instances=1 << 16, reduce="chain")

@@ -1,6 +1,7 @@
 """The port's one-command rehearsal (goi_tpu_torch/examples/rehearsal.py
---fast) on the CPU: synthetic COLMAP scene -> the port's train, render
-and metrics entry points -> query masks -> its eval_seg, with
+--fast) on the CPU: synthetic COLMAP scene -> RGB pre-training from its
+SfM points (iteration 1) -> the port's train, render and metrics entry
+points -> query masks -> its eval_seg, with
 tests/test_round_rehearsal.py's schema and metric sanity checks (and no
 gate on TPU perf artifacts)."""
 
@@ -28,8 +29,21 @@ def test_port_rehearsal_fast(tmp_path):
                 "per_view_json", "cfg_args"):
         assert os.path.exists(art[key]), key
 
-    # the PLY reloads with its sem_* fields, the decoder/LUT pair decodes
+    # iteration 1 is the RGB-trained scene: the SfM cloud's 4x subsample
+    # of the GT's Gaussians, trained away from the create-from-points
+    # init (opacity logit of 0.1 everywhere)
     from goi_tpu_torch.core.ply import load_gaussians_ply
+    cfg = summary["config"]
+    rgb = load_gaussians_ply(os.path.join(
+        os.path.dirname(art["cfg_args"]), "point_cloud", "iteration_1",
+        "point_cloud.ply"), device="cpu")
+    assert cfg["rgb_iters"] == 60
+    assert int(rgb.num_valid) == cfg["rgb_gaussians"]
+    assert 0 < cfg["rgb_gaussians"] != cfg["n_gauss"]
+    init_logit = float(np.log(0.1 / 0.9))
+    assert float((rgb.opacity - init_logit).abs().max()) > 1e-3
+
+    # the PLY reloads with its sem_* fields, the decoder/LUT pair decodes
     from goi_tpu_torch.data.scene import load_semantics
     scene = load_gaussians_ply(art["point_cloud_ply"], device="cpu")
     assert scene.semantics.shape[-1] == 10
