@@ -83,9 +83,24 @@ exits non-zero without the final result line:
 11. [pipeline] python -m goi_tpu_torch.examples.full_pipeline_demo
    --fast as a subprocess: PIPELINE COMPLETE, finite PSNR, mIoU and OSH
    IoU, its stage seconds and kernel launches;
-12. a JSON line with every ported kernel's launches (those of the CLIs'
-   and the demo's processes included), error, times and bound; then the
-   final JSON line.
+12. [app] the interactive query app at full width (goi_tpu_torch/viewer)
+   on its own seeded copy of the 1M scene, where APP_NEAR Gaussians in
+   a ball before the group view and APP_FAR far above every view carry
+   one code: QueryWebApp over localhost HTTP (the page revokes its
+   object URLs; APP_FRAMES frames each of jpeg and png at 1296x960 and
+   the 640x480 preview; a prompt from a .npz store through the seeded
+   aligner; the retrieval exactly the designed groups; DBSCAN grouping
+   at the GUI's defaults keeping exactly the on-screen group; the
+   edits, reset bit for bit, finetune, delete_perm by exactly the
+   matched count), dbscan on the card torch.equal to dbscan_plain on a
+   subsample with shared border points, a camera path and the video op
+   (when cv2 or imageio imports), render_batch torch.equal to single
+   renders, RasterConfig(debug=True)'s dump, and python -m
+   goi_tpu_torch.viewer as a subprocess, its SIBR frame equal to
+   render_view's;
+13. a JSON line with every ported kernel's launches (those of the CLIs',
+   the demo's and the viewer's processes included), error, times and
+   bound; then the final JSON line.
 """
 
 import copy
@@ -166,6 +181,22 @@ RGB_ITERS = 150
 RGB_SCHEDULE = dict(densify_from_iter=20, densification_interval=20,
                     densify_until_iter=120, opacity_reset_interval=100,
                     position_lr_max_steps=RGB_ITERS)
+# [app]: the query app on the main-path scene's own seeded copy: APP_NEAR
+# Gaussians uniform in a ball of radius APP_BALL, APP_BALL_DIST toward
+# the group view APP_VIEW (~1e4 neighbours within APP_EPS each), and
+# APP_FAR around (0, APP_FAR_Y, 0), above every view, carry one code;
+# DBSCAN at the GUI's defaults; its check on APP_CHECK = (points, eps,
+# min_samples), a subsample where clusters share border points; frames
+# at bench.py's orbit (elevation 0, azimuth 137 i, radius 3.5, fovy 50);
+# a path through anchors at APP_PATH[0] azimuths, APP_PATH[1] steps each
+APP_NEAR, APP_FAR = 100_000, 50_000
+APP_BALL, APP_BALL_DIST, APP_FAR_Y = 0.75, 2.2, 40.0
+APP_VIEW = dict(elev=-10.0, azim=30.0, radius=3.5)
+APP_EPS, APP_MIN_SAMPLES = 0.35, 600
+APP_CHECK = (30_000, 0.1, 55)
+APP_FRAMES = 12
+APP_PATH = ((0.0, 40.0, 80.0), 10)
+APP_OSH_EPOCHS = 300
 # tests/test_torch_train.py's GRAD_TOL (rtol, atol): a small scene's RGB
 # step on the card against the CPU's
 GRAD_TOL = (2e-3, 2e-4)
@@ -1691,6 +1722,568 @@ def pipeline_phase():
     return summ["launches"]
 
 
+def app_points():
+    """The designed groups' positions (float32): APP_NEAR uniform in a
+    ball of radius APP_BALL, APP_BALL_DIST from the origin toward the
+    group view's camera, and APP_FAR around (0, APP_FAR_Y, 0), above
+    every view."""
+    from goi_tpu_torch.app.orbit_ngp import orbit_pose
+    rng = np.random.default_rng(9)
+    d = orbit_pose(APP_VIEW["elev"], APP_VIEW["azim"], 1.0)[:3, 3]
+    u = rng.normal(0, 1, (APP_NEAR, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    near = APP_BALL_DIST * d.astype(np.float64) + u * APP_BALL * rng.uniform(
+        0, 1, (APP_NEAR, 1)) ** (1 / 3)
+    far = np.array([0.0, APP_FAR_Y, 0.0]) + 0.4 * rng.normal(
+        0, 1, (APP_FAR, 3))
+    return near.astype(np.float32), far.astype(np.float32)
+
+
+def app_scene(decoder):
+    """The app phase's scene: the main-path scene's seeded copy with the
+    designed groups (Gaussians picked at random) moved to app_points, the
+    near ones small and opaque, all of them carrying one semantic vector
+    that decodes to code c; no other Gaussian decodes to c (those that
+    did have their semantics negated). Returns (scene, c, the groups'
+    mask, the near group's mask), masks as numpy."""
+    import torch
+    scene = make_scene(N_GAUSS, seed=0, device="cuda")
+    near, far = app_points()
+    rng = np.random.default_rng(10)
+    pick = rng.permutation(N_GAUSS)[:APP_NEAR + APP_FAR]
+    idx = torch.as_tensor(pick, device="cuda")
+    nidx = idx[:APP_NEAR]
+    # the code whose own direction decodes to it with the widest margin
+    w = decoder.weights[0].detach().double().cpu().numpy()
+    u = w / np.linalg.norm(w, axis=1, keepdims=True)
+    proj = u @ w.T
+    own = np.diag(proj).copy()
+    np.fill_diagonal(proj, -np.inf)
+    code = int(np.argmax(own - proj.max(1)))
+    vec = torch.as_tensor((4.0 * u[code]).astype(np.float32), device="cuda")
+
+    def codes(sem):
+        with torch.no_grad():
+            return torch.argmax(torch.softmax(decoder(sem) * 10.0, -1), -1)
+
+    xyz = scene.xyz.clone()
+    xyz[idx] = torch.as_tensor(np.concatenate([near, far]), device="cuda")
+    scaling = scene.scaling.clone()
+    scaling[nidx] = torch.as_tensor(np.log(rng.uniform(
+        0.004, 0.008, (APP_NEAR, 1))).astype(np.float32),
+        device="cuda").expand(-1, 3)
+    opacity = scene.opacity.clone()
+    opacity[nidx] = 3.0
+    sem = scene.semantics.clone()
+    sem[idx] = vec
+    target = torch.zeros(N_GAUSS, dtype=torch.bool, device="cuda")
+    target[idx] = True
+    flip = ~target & (codes(sem) == code)
+    sem[flip] = -sem[flip]
+    got = codes(sem) == code
+    if not torch.equal(got, target):
+        raise AssertionError("[app] the designed groups are not exactly "
+                             "the Gaussians of code c")
+    near_mask = torch.zeros_like(target)
+    near_mask[nidx] = True
+    scene = scene.replace(xyz=xyz, scaling=scaling, opacity=opacity,
+                          semantics=sem)
+    return scene, code, target.cpu().numpy(), near_mask.cpu().numpy()
+
+
+def shared_borders(points, eps, min_samples, labels) -> int:
+    """Non-core points within eps of core points of two clusters (plain
+    numpy and scipy, the float64 test of app/dbscan.py)."""
+    from scipy.spatial import cKDTree
+    p = points.astype(np.float64)
+    pairs = cKDTree(p).query_pairs(eps * (1 + 1e-6), output_type="ndarray")
+    i, j = pairs[:, 0], pairs[:, 1]
+    near = ((p[i] - p[j]) ** 2).sum(1) <= eps * eps
+    i, j = i[near], j[near]
+    core = (1 + np.bincount(i, minlength=len(p))
+            + np.bincount(j, minlength=len(p))) >= min_samples
+    lo = np.full(len(p), len(p))
+    hi = np.full(len(p), -1)
+    for a, b in ((i, j), (j, i)):
+        m = ~core[a] & core[b]
+        np.minimum.at(lo, a[m], labels[b[m]])
+        np.maximum.at(hi, a[m], labels[b[m]])
+    return int((~core & (hi >= 0) & (lo != hi)).sum())
+
+
+def http_get(base, path):
+    """(body, wall ms) of one GET."""
+    import urllib.request
+    t0 = time.perf_counter()
+    body = urllib.request.urlopen(base + path, timeout=300).read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def http_op(base, payload, expect_error=False):
+    """POST /op; the reply's JSON (the error JSON of a 500 when
+    expect_error)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(base + "/op",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        body = urllib.request.urlopen(req, timeout=600).read()
+    except urllib.error.HTTPError as e:
+        if expect_error and e.code == 500:
+            return json.loads(e.read())
+        raise
+    if expect_error:
+        raise AssertionError(f"[app] {payload['op']} did not fail")
+    return json.loads(body)
+
+
+def serve_cli(model, store, cam):
+    """[app] check 10: python -m goi_tpu_torch.viewer on `model` as a
+    subprocess; one SIBR request for `cam`; SIGTERM. Returns (the frame,
+    the verification string, the summary line's dict, wall seconds to the
+    first frame)."""
+    import os
+    import queue
+    import threading
+    from goi_tpu_torch.viewer.server import request_frame
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "goi_tpu_torch.viewer", "-m", model,
+             "--port", "0", "--prompt_store", store, "--prompt", "target"],
+            cwd=repo, stdout=subprocess.PIPE, stderr=err, text=True)
+        lines = queue.Queue()
+        reader = threading.Thread(
+            target=lambda: [lines.put(ln) for ln in proc.stdout] + [
+                lines.put(None)], daemon=True)
+        reader.start()
+        out = []
+        try:
+            port = None
+            while port is None:
+                line = lines.get(timeout=300)
+                if line is None:
+                    break
+                out.append(line)
+                if line.startswith("serving "):
+                    port = int(line.rsplit(":", 1)[1].split()[0])
+            if port is None:
+                err.seek(0)
+                raise AssertionError(f"[app] the viewer CLI stopped: "
+                                     f"{''.join(out)}{err.read()[-4000:]}")
+            frame, verify = request_frame("127.0.0.1", port, cam,
+                                          timeout=300)
+            wall = time.perf_counter() - t0
+        finally:
+            proc.terminate()
+            proc.wait(timeout=120)
+            reader.join(timeout=60)
+        while True:
+            line = lines.get_nowait() if not lines.empty() else None
+            if line is None:
+                break
+            out.append(line)
+        if proc.returncode != 0:
+            err.seek(0)
+            raise AssertionError(f"[app] the viewer CLI exited "
+                                 f"{proc.returncode}: {err.read()[-4000:]}")
+    tag = "[goi_tpu_torch.viewer] "
+    summ = [ln for ln in out if ln.startswith(tag)]
+    if len(summ) != 1:
+        raise AssertionError(f"[app] no viewer summary line: {out}")
+    return frame, verify, json.loads(summ[0][len(tag):]), wall
+
+
+def app_phase():
+    """[app]: the interactive query app at full width through its entry
+    points: QueryWebApp over real HTTP on a localhost port (page, frame
+    latency, text query through the aligner, retrieval, DBSCAN grouping,
+    edits, OSH fine-tune, paths and the video op), render_batch,
+    RasterConfig(debug=True), the DBSCAN check against its plain twin,
+    and the SIBR viewer CLI as a subprocess. Returns the kernel launches
+    of the path (this process's and the CLI's)."""
+    import contextlib
+    import io
+    import os
+    import pickle
+    import shutil
+    import torch
+    from PIL import Image
+    import goi_tpu_torch.app.session as session_mod
+    from goi_tpu_torch.app.dbscan import dbscan, dbscan_plain
+    from goi_tpu_torch.app.orbit_ngp import NGPOrbitCamera, orbit_pose
+    from goi_tpu_torch.app.session import QuerySession
+    from goi_tpu_torch.core.camera import focal2fov, fov2focal
+    from goi_tpu_torch.data import scene as triplet
+    from goi_tpu_torch.data.dataset import build_cameras
+    from goi_tpu_torch.data.readers import load_scene_info
+    from goi_tpu_torch.examples.rehearsal import write_colmap
+    from goi_tpu_torch.query.align import VisionLanguageAlign
+    from goi_tpu_torch.query.similarity import ape_similarity
+    from goi_tpu_torch.query.text_encoder import (PrecomputedTextEncoder,
+                                                  encode_and_align)
+    from goi_tpu_torch.raster.preprocess import preprocess
+    from goi_tpu_torch.raster.render import (DEBUG_DUMP, RasterConfig,
+                                             render, render_batch,
+                                             suggest_budgets)
+    from goi_tpu_torch.semantic.codebook import SemanticDecoder
+    from goi_tpu_torch.viewer.app import QueryWebApp
+    from goi_tpu_torch.viewer.web import orbit_view_camera
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    root = tempfile.mkdtemp(prefix="goi_app_")
+    app = None
+    try:
+        gen = torch.Generator().manual_seed(0)
+        decoder = SemanticDecoder.create(gen, dim_in=SEM_DIM,
+                                         dim_out=TAB_LEN, device="cuda")
+        lut = torch.as_tensor(np.random.default_rng(2).normal(
+            0, 1, (TAB_LEN, APE_DIM)).astype(np.float32), device="cuda")
+        scene, code, target, near_mask = app_scene(decoder)
+
+        # the prompt: a 1024-d embedding the seeded aligner maps onto LUT
+        # row `code`'s direction (its pseudo-inverse), in a .npz store
+        align = VisionLanguageAlign.create(seed=0, device="cuda")
+        n_code = (lut[code] / torch.linalg.norm(lut[code])).cpu().numpy()
+        emb = np.linalg.pinv(align.w_text.cpu().numpy().astype(np.float64)
+                             ) @ n_code.astype(np.float64)
+        store = os.path.join(root, "prompts.npz")
+        np.savez(store, target=emb.astype(np.float32))
+        enc = PrecomputedTextEncoder(store)
+        tokens = encode_and_align(enc, align, "target")[0]
+        cos = float(tokens @ torch.as_tensor(n_code, device="cuda")
+                    / torch.linalg.norm(tokens))
+        if cos < 0.999:
+            raise AssertionError(f"[app] aligned prompt off its code: {cos}")
+        # the threshold halfway between the code's similarity and the
+        # next code's, so that the groups are the retrieval
+        normed = lut / torch.linalg.norm(lut, dim=-1, keepdim=True)
+        sims = ape_similarity(normed, tokens).cpu().numpy().astype(
+            np.float64)
+        others = np.delete(sims, code)
+        if not sims[code] > others.max():
+            raise AssertionError("[app] the prompt's code is not the most "
+                                 "similar")
+        thresh = float((sims[code] + others.max()) / 2)
+
+        ngp = NGPOrbitCamera(WIDTH, HEIGHT, r=3.5, fovy=50.0)
+        views = []
+        for i in range(APP_FRAMES + 1):
+            ngp.orbit_to(0.0, 137.0 * i)
+            views.append(ngp.to_camera(device="cuda"))
+        group_q = dict(APP_VIEW, w=WIDTH, h=HEIGHT)
+        group_cam = orbit_view_camera(group_q, 50.0, "cuda")
+        anchors = []
+        for az in APP_PATH[0]:
+            ngp.orbit_to(APP_VIEW["elev"], az)
+            anchors.append(np.linalg.inv(ngp.to_camera(
+                device="cpu").world_view.numpy().astype(np.float64)))
+        cfg = RasterConfig(max_instances=suggest_budgets(
+            scene, views + [group_cam, ngp.to_camera(device="cuda")],
+            margin=1.5)[0])
+        sess = QuerySession(scene, decoder, lut, cfg, sim_thresh=thresh,
+                            white_background=False, device="cuda")
+        log(f"[app] scene: {N_GAUSS} Gaussians, {APP_NEAR} in a ball of "
+            f"radius {APP_BALL} before the group view and {APP_FAR} above "
+            f"every view carry code {code}; prompt through the aligner "
+            f"(cos {cos:.6f} to the code's LUT row, |tokens| "
+            f"{float(torch.linalg.norm(tokens)):.4f}); sim_thresh "
+            f"{thresh:.6f} between {sims[code]:.6f} and {others.max():.6f};"
+            f" budget {cfg.max_instances}")
+        torch.cuda.synchronize()
+
+        reset_counts()
+        app = QueryWebApp(sess, text_fn=lambda p: encode_and_align(
+            enc, align, p)[0], host="127.0.0.1", port=0)
+        app.start()
+        base = f"http://127.0.0.1:{app.port}"
+
+        # 1. the page
+        page, _ = http_get(base, "/")
+        if b"revokeObjectURL" not in page:
+            raise AssertionError("[app] the page does not revoke its URLs")
+
+        # 3. the text query and the retrieval
+        if http_op(base, {"op": "set_text", "prompt": "target"}) != {
+                "ok": True, "prompt": "target"}:
+            raise AssertionError("[app] set_text failed")
+        if not torch.equal(sess.text_tokens, tokens):
+            raise AssertionError("[app] the session's tokens differ")
+        got = http_op(base, {"op": "retrieve"})["retrieved"]
+        if got != APP_NEAR + APP_FAR or not np.array_equal(
+                sess.rel_gs_index, target):
+            raise AssertionError(f"[app] retrieved {got}, designed "
+                                 f"{APP_NEAR + APP_FAR}")
+        log(f"[app] set_text + retrieve over HTTP: {got} Gaussians, "
+            f"exactly the designed groups")
+
+        # 2. frame latency (bench.py's orbit), after a warm-up each
+        for fmt, scale in (("jpeg", 1.0), ("png", 1.0), ("jpeg", 0.5)):
+            def path(i):
+                return (f"/frame?elev=0&azim={137.0 * i}&radius=3.5&w="
+                        f"{WIDTH}&h={HEIGHT}&fmt={fmt}&scale={scale}")
+            http_get(base, path(0))
+            ms, size = [], 0
+            for i in range(APP_FRAMES):
+                body, t = http_get(base, path(i + 1))
+                ms.append(t)
+                size += len(body)
+            img = Image.open(io.BytesIO(body))
+            want = orbit_view_camera({"w": WIDTH, "h": HEIGHT,
+                                      "scale": scale}, 50.0, "cpu")
+            if img.format != fmt.upper() or img.size != (want.width,
+                                                         want.height):
+                raise AssertionError(f"[app] frame {img.format} {img.size}")
+            p50, p95 = np.percentile(ms, [50, 95])
+            log(f"[app] GET /frame {fmt} {img.size[0]}x{img.size[1]}: "
+                f"{APP_FRAMES} frames p50 {p50:.2f} ms, p95 {p95:.2f} ms, "
+                f"{size // APP_FRAMES} bytes each; {smi}")
+        profile(lambda: app._frame({"elev": "0", "azim": "137", "radius":
+                                    "3.5", "w": str(WIDTH), "h": str(HEIGHT),
+                                    "fmt": "jpeg"}), "app frame (jpeg)")
+
+        # 4. grouping: the query's own mask of the group view
+        with torch.no_grad():
+            out = render(sess.scene, group_cam, sess.bg, cfg)
+        mask = (sess.compute_similarity(out["semantics"].reshape(
+            SEM_DIM, -1).T) > 0).reshape(group_cam.height, group_cam.width)
+        mask = mask.to(torch.uint8).cpu().numpy()
+        seen = {}
+
+        def timed_dbscan(points, eps, min_samples):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = dbscan(points, eps, min_samples)
+            torch.cuda.synchronize()
+            seen.update(ms=(time.perf_counter() - t0) * 1e3,
+                        n=len(points), labels=labels)
+            return labels
+
+        session_mod.dbscan = timed_dbscan
+        try:
+            t0 = time.perf_counter()
+            kept = http_op(base, dict(op="group", mask=mask.tolist(),
+                                      eps=APP_EPS,
+                                      min_samples=APP_MIN_SAMPLES,
+                                      **group_q))["kept"]
+            group_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            session_mod.dbscan = dbscan
+        lab = seen["labels"].cpu().numpy()
+        if kept != APP_NEAR or not np.array_equal(sess.rel_gs_index,
+                                                  near_mask):
+            raise AssertionError(f"[app] group kept {kept}, the on-screen "
+                                 f"group is {APP_NEAR}")
+        log(f"[app] group (eps {APP_EPS}, min_samples {APP_MIN_SAMPLES}): "
+            f"kept exactly the on-screen group ({kept}); the off-screen "
+            f"cluster dropped; op {group_ms:.1f} ms wall; dbscan "
+            f"{seen['ms']:.2f} ms at {seen['n']} points ({lab.max() + 1} "
+            f"clusters, {(lab == -1).sum()} noise); {smi}")
+
+        # 5. DBSCAN on the card against its plain twin
+        n_sub, eps, min_samples = APP_CHECK
+        pick = np.random.default_rng(11).choice(APP_NEAR + APP_FAR, n_sub,
+                                                replace=False)
+        sub = sess.scene.xyz[torch.as_tensor(np.nonzero(target)[0][pick],
+                                             device="cuda")]
+        got, got_ms = timed_ms(lambda: dbscan(sub, eps, min_samples))
+        t0 = time.perf_counter()
+        want = dbscan_plain(sub, eps, min_samples)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            raise AssertionError("[app] dbscan on the card differs from "
+                                 "dbscan_plain")
+        lab = want.cpu().numpy()
+        shared = shared_borders(sub.cpu().numpy(), eps, min_samples, lab)
+        if shared <= 0 or lab.max() < 2:
+            raise AssertionError(f"[app] the DBSCAN check has {shared} "
+                                 f"shared border points")
+        log(f"[app] dbscan on {n_sub} points (eps {eps}, min_samples "
+            f"{min_samples}): torch.equal to dbscan_plain; {lab.max() + 1} "
+            f"clusters, {(lab == -1).sum()} noise, {shared} border points "
+            f"shared by two clusters; card {got_ms:.2f} ms, plain "
+            f"{plain_ms:.1f} ms (host); {smi}")
+
+        # 7. a camera path and the video op
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = sess.render_path(anchors, WIDTH, HEIGHT, ngp.fovx,
+                                  ngp.fovy, steps_per_segment=APP_PATH[1])
+        path_s = time.perf_counter() - t0
+        n_path = (len(anchors) - 1) * APP_PATH[1] + 1
+        if len(frames) != n_path or any(
+                f.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(f).all()
+                for f in frames):
+            raise AssertionError("[app] bad path frames")
+        log(f"[app] render_path: {n_path} frames at {WIDTH}x{HEIGHT} in "
+            f"{path_s:.2f} s, {n_path / path_s:.1f} frames/s; {smi}")
+        writer = None
+        for name in ("cv2", "imageio"):
+            try:
+                __import__(name)
+                writer = name
+                break
+            except ImportError:
+                pass
+        if writer is None:
+            log("[app] video op not run: neither cv2 nor imageio imports")
+        else:
+            out_mp4 = os.path.join(root, "path.mp4")
+            res = http_op(base, {"op": "video", "anchors": [
+                a.tolist() for a in anchors], "w": WIDTH, "h": HEIGHT,
+                "fovx": ngp.fovx, "fovy": ngp.fovy, "steps": APP_PATH[1],
+                "out": out_mp4})
+            if res["frames"] != n_path or os.path.getsize(out_mp4) <= 0:
+                raise AssertionError(f"[app] video op: {res}")
+            log(f"[app] video op ({writer}): {res['frames']} frames, "
+                f"{os.path.getsize(out_mp4)} bytes")
+
+        # 8. render_batch of 3 views against three render() calls
+        with torch.no_grad():
+            batch = render_batch(sess.scene, views[:3], sess.bg, cfg)
+            for i, cam in enumerate(views[:3]):
+                one = render(sess.scene, cam, sess.bg, cfg)
+                for k, v in one.items():
+                    if not torch.equal(batch[k][i], v):
+                        raise AssertionError(f"[app] render_batch {k}[{i}]")
+        if int(batch["num_slots"].max()) > cfg.max_instances:
+            raise AssertionError("[app] render_batch overflowed its budget")
+        log("[app] render_batch of 3 views: every output torch.equal to "
+            "three render() calls")
+
+        # 9. RasterConfig(debug=True)
+        dbg = RasterConfig(max_instances=cfg.max_instances, debug=True)
+        # the nearest Gaussian of the view: the first its tiles blend
+        with torch.no_grad():
+            sp = preprocess(sess.scene, group_cam)
+        depth = torch.where(sp.radius > 0, sp.depth,
+                            torch.full_like(sp.depth, float("inf")))
+        k = int(torch.argmin(depth))
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            with torch.no_grad():
+                render(sess.scene, group_cam, sess.bg, dbg)
+                xyz = sess.scene.xyz.clone()
+                xyz[k, 0] = float("nan")
+                out = render(sess.scene.replace(xyz=xyz), group_cam,
+                             sess.bg, dbg)
+                if os.path.exists(DEBUG_DUMP) or not (
+                        torch.isfinite(out["render"]).all()
+                        and torch.isfinite(out["semantics"]).all()):
+                    raise AssertionError("[app] debug: a clean frame or a "
+                                         "culled NaN position dumped")
+                sem = sess.scene.semantics.clone()
+                sem[k, 0] = float("nan")
+                bad = sess.scene.replace(semantics=sem)
+                said = io.StringIO()
+                with contextlib.redirect_stdout(said):
+                    render(bad, group_cam, sess.bg, dbg)
+                with open(DEBUG_DUMP, "rb") as f:
+                    dump = pickle.load(f)
+                sp = preprocess(bad, group_cam)
+            if "non-finite render output" not in said.getvalue() or any(
+                    not np.array_equal(v, getattr(sp, n).cpu().numpy(),
+                                       equal_nan=True)
+                    for n, v in dump.items()) or len(dump) != len(
+                        sp.__dataclass_fields__):
+                raise AssertionError("[app] debug dump")
+        finally:
+            os.chdir(cwd)
+        log(f"[app] debug: no dump for the clean frame nor for a NaN "
+            f"position (culled); a NaN semantic channel dumped "
+            f"{len(dump)} splat fields of {dump['mean2d'].shape[0]} rows, "
+            f"which load")
+
+        # 10. the SIBR viewer CLI on a model directory
+        src = os.path.join(root, "scene")
+        model = os.path.join(root, "model")
+        eye = orbit_pose(APP_VIEW["elev"], APP_VIEW["azim"],
+                         APP_VIEW["radius"])[:3, 3]
+        focal = fov2focal(0.9, WIDTH)
+        write_colmap(src, [(*look_at_pose(eye), None)], WIDTH, HEIGHT,
+                     focal, fov2focal(focal2fov(focal, HEIGHT), HEIGHT), [],
+                     np.zeros((8, 3)), np.full((8, 3), 128, np.uint8))
+        t0 = time.perf_counter()
+        triplet.save(os.path.join(model, "point_cloud", "iteration_1"),
+                     sess.scene, decoder, lut)
+        save_s = time.perf_counter() - t0
+        with open(os.path.join(model, "cfg_args.json"), "w") as f:
+            json.dump({"ModelParams": {"source_path": src}}, f)
+        aligned = os.path.join(root, "prompts_aligned.npz")
+        np.savez(aligned, target=tokens.cpu().numpy())
+        cam = build_cameras(load_scene_info(src).train_cameras,
+                            device="cuda")[0]
+        frame, verify, summ, wall = serve_cli(model, aligned, cam)
+        view_sess = QuerySession(sess.scene, decoder, lut, cfg,
+                                 white_background=False, device="cuda")
+        view_sess.set_text(tokens)
+        want = view_sess.render_view(cam, as_u8=True)
+        if not np.array_equal(frame, want) or verify != src or \
+                summ["frames"] != 1:
+            diff = np.abs(frame.astype(int) - want.astype(int))
+            raise AssertionError(f"[app] viewer CLI frame: max diff "
+                                 f"{diff.max()}, {(diff > 0).sum()} values "
+                                 f"differ; {verify}, {summ}")
+        log(f"[app] python -m goi_tpu_torch.viewer: a {cam.width}x"
+            f"{cam.height} frame over the SIBR protocol equal to render_view"
+            f"'s; {wall:.1f} s to it (triplet written in {save_s:.1f} s; "
+            f"load {summ['load_s']:.2f} s, render {summ['render_s']:.3f} "
+            f"s); launches {summ['launches']}")
+        del view_sess
+
+        # 6. the edits
+        for op in ("segment", "delete_view"):
+            if http_op(base, {"op": op}) != {"ok": True}:
+                raise AssertionError(f"[app] {op}")
+            http_get(base, f"/frame?elev={APP_VIEW['elev']}&azim="
+                     f"{APP_VIEW['azim']}&radius=3.5&w={WIDTH}&h={HEIGHT}")
+        xyz_before = sess.scene.xyz
+        http_op(base, {"op": "move", "delta": [0.1, 0.0, -0.05]})
+        moved = int((sess.scene.xyz != xyz_before).any(1).sum())
+        http_op(base, {"op": "reset"})
+        if moved != APP_NEAR or not torch.equal(sess.scene.xyz, xyz_before):
+            raise AssertionError(f"[app] move/reset: {moved} moved")
+        ft = http_op(base, dict(op="finetune", mask=mask.tolist(),
+                                max_epochs=APP_OSH_EPOCHS, **group_q))
+        if not (math.isfinite(ft["iou"]) and ft["epochs"] >= 0):
+            raise AssertionError(f"[app] finetune: {ft}")
+        http_op(base, {"op": "set_text", "prompt": "target"})
+        http_op(base, {"op": "retrieve"})
+        matched = int((sess.compute_similarity(sess.scene.get_semantics())
+                       > 0).sum())
+        before = int(sess.scene.num_valid)
+        after = http_op(base, {"op": "delete_perm"})["num_valid"]
+        if before - after != matched or matched != APP_NEAR + APP_FAR:
+            raise AssertionError(f"[app] delete_perm: {before} -> {after}, "
+                                 f"{matched} matched")
+        refused = http_op(base, {"op": "edit_train"}, expect_error=True)
+        if "no edit session configured" not in refused["error"]:
+            raise AssertionError(f"[app] edit_train: {refused}")
+        log(f"[app] segment, delete_view, move ({moved} moved) + reset "
+            f"(xyz torch.equal), finetune (IoU {ft['iou']:.4f} in "
+            f"{ft['epochs']} epochs), delete_perm ({before} -> {after}, "
+            f"{matched} matched); the edit ops refused")
+        app.stop()
+        app = None
+        torch.cuda.synchronize()
+        launches = read_counts()
+        for k2, n in summ["launches"].items():
+            launches[k2] += n
+        if min(launches[k2] for k2 in ("gather", "blend")) <= 0:
+            raise AssertionError(f"[app] no kernel launched: {launches}")
+        log(f"[app] phase {time.perf_counter() - t_phase:.1f} s; launches "
+            f"{launches}")
+        return launches
+    finally:
+        if app is not None:
+            app.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1864,7 +2457,12 @@ def main() -> int:
     for k, n in pipeline_phase().items():
         launches[k] = launches.get(k, 0) + n
 
-    # ---- 12. kernels line, result ----
+    # ---- 12. the interactive query app ----
+    torch.cuda.empty_cache()
+    for k, n in app_phase().items():
+        launches[k] = launches.get(k, 0) + n
+
+    # ---- 13. kernels line, result ----
     kernels = [
         dict(name="expand_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",

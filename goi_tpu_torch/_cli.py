@@ -1,9 +1,9 @@
 """What the port's entry points share: the device flag, the kernel
 launch counts and the summary line.
 
-`python -m goi_tpu_torch.{train,render,metrics,eval_seg}` run on the
-CUDA card unless given `--device cpu`; asked for the card where there is
-none, they stop. Each ends by printing one summary line,
+`python -m goi_tpu_torch.{train,render,metrics,eval_seg,viewer}` run on
+the CUDA card unless given `--device cpu`; asked for the card where
+there is none, they stop. Each ends by printing one summary line,
 `[goi_tpu_torch.<cli>] {json}`, with its load and compute seconds and
 the launches of each hand-written kernel in the process (a kernel
 wrapper counts one for each launch; the plain versions that CPU tensors

@@ -8,11 +8,13 @@ Counterpart of goi_tpu/app/session.py:
   similarity and a motion vector (ref:gui/main.py:400-405,516-531,
   1168-1227)
 - OSH fine-tuning from a RES mask (ref:gui/main.py:1673-1763)
+- DBSCAN instance grouping with view-consistency filtering
+  (ref:gui/main.py:1595-1671), through app/dbscan.py on the device
 - query masks on disk and their scores against ground-truth masks
   (ref:gui/main.py:1938-2016, gui/main_test.py:628-687)
+- anchor-pose video paths (ref:gui/main.py:1766-1821)
 
 A frame is an eager sequence of launches on the session's device.
-DBSCAN grouping and video paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from goi_tpu_torch.app.dbscan import dbscan
+from goi_tpu_torch.core.camera import Camera
 from goi_tpu_torch.core.scene import GaussianScene
 from goi_tpu_torch.eval.metrics import iou_metrics
 from goi_tpu_torch.query.osh import (OSHState, osh_finetune, osh_init,
@@ -30,7 +34,9 @@ from goi_tpu_torch.query.osh import (OSHState, osh_finetune, osh_init,
 from goi_tpu_torch.query.similarity import ape_similarity
 from goi_tpu_torch.raster.render import RasterConfig, render
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
-from goi_tpu_torch.utils.image import save_image, turbo_colormap
+from goi_tpu_torch.utils.image import (compute_mask_ratio, save_image,
+                                       turbo_colormap)
+from goi_tpu_torch.utils.pose import interpolate_poses
 
 
 def _normed_codebook_features(decoder, lut, features):
@@ -115,6 +121,9 @@ class QuerySession:
         self.rel_gs_index: Optional[np.ndarray] = None
         self.gs_index: Optional[np.ndarray] = None
         self.motion = np.zeros(tuple(scene.xyz.shape), np.float32)
+        # positions before the first move since the last retrieve/reset,
+        # so that reset restores them exactly
+        self._rest_xyz: Optional[torch.Tensor] = None
 
     # ---- text / similarity ----
     def set_text(self, aligned_tokens, log_scale: float = 0.0) -> None:
@@ -204,6 +213,7 @@ class QuerySession:
     def retrieve(self) -> np.ndarray:
         self.rel_gs_index = self.compute_relative_gs_index()
         self.motion = np.zeros_like(self.motion)
+        self._rest_xyz = None
         return self.rel_gs_index
 
     def segment(self) -> None:
@@ -222,21 +232,59 @@ class QuerySession:
 
     def move(self, delta) -> None:
         """Translate the retrieved subset (ref:gui/main.py:1418-1496);
-        accumulated in self.motion for reset."""
+        accumulated in self.motion, the positions before the first move
+        kept for reset."""
         if self.rel_gs_index is None:
             return
         d = np.asarray(delta, np.float32)
-        step = self.rel_gs_index[:, None] * d
-        self.motion = self.motion + step
+        self.motion = self.motion + self.rel_gs_index[:, None] * d
+        if self._rest_xyz is None:
+            self._rest_xyz = self.scene.xyz
         self.scene = self.scene.replace(
-            xyz=self.scene.xyz + torch.as_tensor(step, device=self.device))
+            xyz=self._rest_xyz + torch.as_tensor(self.motion,
+                                                 device=self.device))
 
     def reset_motion(self) -> None:
-        self.scene = self.scene.replace(
-            xyz=self.scene.xyz - torch.as_tensor(self.motion,
-                                                 device=self.device))
+        """Undo the moves (the positions before them, bit for bit) and
+        show every Gaussian again."""
+        if self._rest_xyz is not None:
+            self.scene = self.scene.replace(xyz=self._rest_xyz)
+        self._rest_xyz = None
         self.motion = np.zeros_like(self.motion)
         self.gs_index = None
+
+    # ---- instance grouping (ref:gui/main.py:1595-1671) ----
+    def group_points(self, cam, res_mask: np.ndarray, eps: float = 0.35,
+                     min_samples: int = 600,
+                     ratio_thresh: float = 0.7) -> np.ndarray:
+        """Split the retrieved Gaussians into DBSCAN clusters of their
+        positions and keep the clusters whose own query mask in view
+        `cam` lies mostly inside `res_mask` (|cluster & res| / |cluster|
+        > ratio_thresh). Sets and returns the new retrieval."""
+        target = self.rel_gs_index.copy()
+        sel_idx = np.nonzero(target)[0]
+        pts = self.scene.xyz[torch.as_tensor(sel_idx, device=self.device)]
+        clusters = dbscan(pts, eps, min_samples).cpu().numpy()
+        keep = np.zeros_like(target)
+        for cid in range(int(clusters.max(initial=-1)) + 1):
+            tmp = np.zeros_like(target)
+            tmp[sel_idx[clusters == cid]] = True
+            with torch.no_grad():
+                out = render(self.scene, cam.to(self.device), self.bg,
+                             self.raster_cfg,
+                             semantic_masks=torch.as_tensor(
+                                 tmp, dtype=torch.float32,
+                                 device=self.device))
+                s = out["semantics"].shape[0]
+                sim = self.compute_similarity(
+                    out["semantics"].reshape(s, -1).T)
+            if float(sim.sum()) == 0:
+                continue
+            sem_mask = (sim > 0).reshape(cam.height, cam.width).cpu().numpy()
+            if compute_mask_ratio(sem_mask, res_mask) > ratio_thresh:
+                keep |= tmp
+        self.rel_gs_index = keep
+        return keep
 
     # ---- eval (ref:gui/main.py:1938-2016, gui/main_test.py:628-687) ----
     @torch.no_grad()
@@ -272,3 +320,18 @@ class QuerySession:
             for k in agg:
                 agg[k].append(float(m[k]))
         return {k: float(np.mean(v)) for k, v in agg.items()}
+
+    # ---- video (ref:gui/main.py:1766-1821) ----
+    def render_path(self, anchor_c2ws: List[np.ndarray], width: int,
+                    height: int, fovx: float, fovy: float,
+                    steps_per_segment: int = 30,
+                    mode: str = "image") -> List[np.ndarray]:
+        """Frames (render_view) along the slerp/lerp path through the
+        COLMAP-convention c2w anchor poses."""
+        frames = []
+        for c2w in interpolate_poses(anchor_c2ws, steps_per_segment):
+            w2c = np.linalg.inv(c2w)
+            cam = Camera.from_Rt(w2c[:3, :3].T, w2c[:3, 3], fovx, fovy,
+                                 width, height, device=self.device)
+            frames.append(self.render_view(cam, mode=mode))
+        return frames

@@ -93,3 +93,15 @@ def load_saved_params(model_path: str, cls: Type[T]) -> T:
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in d.items() if k in names})
 
+
+def combined_params(args: Namespace, cls: Type[T]) -> T:
+    """get_combined_args' precedence (ref:arguments/__init__.py:93-113):
+    the run directory's saved config overrides the defaults, and a flag
+    given with another value than its default overrides the saved one."""
+    saved = load_saved_params(args.model_path, cls)
+    cli = extract_params(args, cls)
+    base = cls()
+    return cls(**{f.name: (getattr(cli, f.name)
+                           if getattr(cli, f.name) != getattr(base, f.name)
+                           else getattr(saved, f.name))
+                  for f in dataclasses.fields(cls)})

@@ -16,6 +16,7 @@ import torch
 
 from goi_tpu_torch.core.camera import Camera
 from goi_tpu_torch.core.scene import GaussianScene
+from goi_tpu_torch.query.align import VisionLanguageAlign
 from goi_tpu_torch.query.osh import OSHState
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
 
@@ -66,6 +67,18 @@ def lut_from_numpy(lut: np.ndarray, device="cuda") -> torch.Tensor:
 def osh_from_numpy(weight: np.ndarray, bias, device="cuda") -> OSHState:
     return OSHState(weight=_t(np.asarray(weight, np.float32), device),
                     bias=_t(np.asarray(bias, np.float32), device))
+
+
+def aligner_from_numpy(w_text, b_text, log_scale, bias_lang, bias0,
+                       device="cuda") -> VisionLanguageAlign:
+    """A VisionLanguageAlign from the JAX aligner's five fields."""
+    f32 = np.float32
+    return VisionLanguageAlign(
+        w_text=_t(np.asarray(w_text, f32), device),
+        b_text=_t(np.asarray(b_text, f32), device),
+        log_scale=_t(np.asarray(log_scale, f32).reshape(1), device),
+        bias_lang=_t(np.asarray(bias_lang, f32), device),
+        bias0=_t(np.asarray(bias0, f32).reshape(1), device))
 
 
 def adam_state_from_numpy(opt: torch.optim.Adam,

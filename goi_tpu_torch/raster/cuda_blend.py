@@ -79,12 +79,20 @@ def _pack_impl(mean2d, conic, opacity, color, semantics, depth, gid):
     return per_gauss[:, gid.long()].contiguous()
 
 
+def lane_features(feat, idx, m):
+    """(g, K, d) packed rows of a chunk's lanes idx (g, K) for the plain
+    walks, zero where m is false: those lanes read the stream past the
+    tile's range, where a culled Gaussian's non-finite values (a NaN
+    position) would reach the sums through a zero weight."""
+    f = feat[:, torch.clamp(idx, max=feat.shape[1] - 1)].permute(1, 2, 0)
+    return torch.where(m[..., None], f, torch.zeros_like(f))
+
+
 def blend_fwd_plain(feat, starts, ends, grid_x: int):
     """Plain version of the kernel: all tiles, K-chunks of their exact
     [start, end) ranges, composed with blend.chunk_weights; no cap on a
     tile's depth."""
-    d, length = feat.shape
-    n_out = d - 6
+    n_out = feat.shape[0] - 6
     num_tiles = starts.shape[0]
     grid_y = num_tiles // grid_x
     dev = feat.device
@@ -105,8 +113,7 @@ def blend_fwd_plain(feat, starts, ends, grid_x: int):
         for c in range(n_chunks):
             idx = st[:, None] + c * K + lane                  # (g, K)
             m = idx < en[:, None]
-            f = feat[:, torch.clamp(idx, max=length - 1)]     # (d, g, K)
-            f = f.permute(1, 2, 0)                            # (g, K, d)
+            f = lane_features(feat, idx, m)                   # (g, K, d)
             ck = chunk_weights(f[..., 0:2], f[..., 2:5], f[..., 5], m,
                                xs[sl], ys[sl], t_all)
             acc += torch.bmm(ck["w"], f[..., 6:])
@@ -330,8 +337,7 @@ def blend_bwd_plain(feat, starts, ends, raw, grad, grid_x: int):
         for c in range(n_chunks):
             idx = st[:, None] + c * K + lane                  # (g, K)
             m = idx < en[:, None]
-            f = feat[:, torch.clamp(idx, max=length - 1)]     # (d, g, K)
-            f = f.permute(1, 2, 0)                            # (g, K, d)
+            f = lane_features(feat, idx, m)                   # (g, K, d)
             ck = chunk_weights(f[..., 0:2], f[..., 2:5], f[..., 5], m,
                                xs[sl], ys[sl], t_all)
             w, dx, dy = ck["w"], ck["dx"], ck["dy"]           # (g, P, K)

@@ -30,8 +30,8 @@ from goi_tpu_torch.raster.cuda_blend import (K, PIX, PLAIN_TILE_BATCH,
                                              S_MAX, _blend_fwd_launch,
                                              _check_kernel_inputs,
                                              _fwd_in_groups, _group_rows,
-                                             kernel_width, pad_feat,
-                                             unpad_raw)
+                                             kernel_width, lane_features,
+                                             pad_feat, unpad_raw)
 from goi_tpu_torch.raster.reference import T_EPS
 
 HIT_ALPHA = 0.005     # strict: a blended instance lifts iff alpha > this
@@ -85,8 +85,7 @@ def trace_fwd_plain(feat, starts, ends, aug, grid_x: int):
         for c in range(n_chunks):
             idx = st[:, None] + c * K + lane                  # (g, K)
             m = idx < en[:, None]
-            f = feat[:, torch.clamp(idx, max=length - 1)]     # (d, g, K)
-            f = f.permute(1, 2, 0)                            # (g, K, d)
+            f = lane_features(feat, idx, m)                   # (g, K, d)
             _, _, _, alpha, valid = pair_alpha(f[..., 0:2], f[..., 2:5],
                                                f[..., 5], m, xs[sl], ys[sl])
             q = torch.where(valid, 1.0 - alpha, torch.ones_like(alpha))

@@ -10,14 +10,15 @@ JAX package uses JAX autodiff there, PARITY.md N5), binning under
 no_grad, and the blend's own backward (raster/cuda_blend.py) with the
 reduce that `_effective_reduce` picks. `trace` lifts a 2D feature map
 onto the Gaussians through the fused blend + lift kernel
-(raster/cuda_trace.py), forward only. `render_batch` and the aligned
-layout are not ported yet.
+(raster/cuda_trace.py), forward only. `render_batch` renders a list of
+views on one budget. The aligned layout is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import pickle
+from typing import List, Optional
 
 import torch
 
@@ -53,6 +54,12 @@ class RasterConfig:
         the same bits, less memory traffic). Off by default, as the JAX
         package's GOI_DENSE_REDUCE; valid with the 'chain' reduce only.
         It applies to render's backward and to trace's lift.
+    debug: after each render, test `render` and `semantics` for
+        non-finite values (one host sync) and, on one, pickle the
+        preprocess output as a dict of numpy arrays to
+        `snapshot_fw.dump` in the working directory (the role of the
+        reference's --debug snapshot, ref:diff_gaussian_rasterization/
+        __init__.py:112-119).
     """
 
     max_instances: int = 1 << 20
@@ -61,6 +68,7 @@ class RasterConfig:
     cull: bool = True
     layout: str = "chunked"
     dense_reduce: bool = False
+    debug: bool = False
 
 
 def _grid(cam: Camera):
@@ -179,7 +187,32 @@ def render(scene: GaussianScene, cam: Camera, bg_color,
                          device=scene.xyz.device)
     tiles = blend_tiles_cuda(sp, binning, bg, grid_x=grid_x, reduce=reduce,
                              dense=config.dense_reduce)
-    return _assemble_out(tiles, sp, binning, cam, grid_x, grid_y)
+    out = _assemble_out(tiles, sp, binning, cam, grid_x, grid_y)
+    if config.debug and not bool(torch.isfinite(out["render"]).all()
+                                 & torch.isfinite(out["semantics"]).all()):
+        _dump_splats(sp)
+    return out
+
+
+DEBUG_DUMP = "snapshot_fw.dump"
+
+
+def _dump_splats(sp) -> None:
+    fields = {f.name: getattr(sp, f.name).detach().cpu().numpy()
+              for f in dataclasses.fields(sp)}
+    with open(DEBUG_DUMP, "wb") as f:
+        pickle.dump(fields, f)
+    print(f"[goi_tpu_torch] non-finite render output; rasterizer inputs "
+          f"dumped to {DEBUG_DUMP}", flush=True)
+
+
+def render_batch(scene: GaussianScene, cams: List[Camera], bg_color,
+                 config: RasterConfig = RasterConfig(), **kw):
+    """render() of each view in `cams` on the one budget of `config`;
+    every output stacked along a leading view axis (video paths, eval
+    sweeps)."""
+    outs = [render(scene, cam, bg_color, config, **kw) for cam in cams]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def _check_config(config: RasterConfig) -> None:

@@ -12,7 +12,6 @@ under the flags given, pick the scene; each split's views render to
 
 from __future__ import annotations
 
-import dataclasses
 import os
 from argparse import ArgumentParser
 
@@ -20,8 +19,7 @@ import torch
 
 from goi_tpu_torch import _cli
 from goi_tpu_torch.configs.params import (ModelParams, PipelineParams,
-                                          add_params, extract_params,
-                                          load_saved_params)
+                                          add_params, combined_params)
 
 
 def render_set(model_path, name, iteration, cameras, infos, gaussians,
@@ -60,17 +58,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     device = _cli.resolve_device(args.device)
 
-    # get_combined_args' precedence (ref:arguments/__init__.py:93-113):
-    # the saved cfg_args override the defaults, a flag given with another
-    # value than its default overrides the saved one
-    saved = load_saved_params(args.model_path, ModelParams)
-    cli = extract_params(args, ModelParams)
-    base = ModelParams()
-    mp = ModelParams(**{
-        f.name: (getattr(cli, f.name)
-                 if getattr(cli, f.name) != getattr(base, f.name)
-                 else getattr(saved, f.name))
-        for f in dataclasses.fields(ModelParams)})
+    mp = combined_params(args, ModelParams)
 
     from goi_tpu_torch.data.scene import Scene
     from goi_tpu_torch.raster.render import RasterConfig, suggest_budgets

@@ -1,10 +1,12 @@
-"""Image/mask helpers, heat overlays and image files.
+"""Image/mask helpers, heat overlays, image and video files.
 
-Counterpart of goi_tpu/utils/image.py (the parts the query frame and the
-CLIs use): the turbo-colormap heat overlay `clip_color`
-(ref:utils/image_utils.py:149-178), `compute_mask_ratio` (:36-49), and
-the PNG/JPEG reads, writes and resizes of the data readers and CLIs,
-through PIL, imported where the JAX package imports it.
+Counterpart of goi_tpu/utils/image.py: the turbo-colormap heat overlay
+`clip_color` (ref:utils/image_utils.py:149-178), `apply_mask`,
+`compute_mask_ratio` and `calculate_iou` (:27-60), the image-sequence
+video writer (:121-140), the NYU40 label palette
+(ref:utils/general_utils.py:199-223), and the PNG/JPEG reads, writes
+and resizes of the data readers and CLIs, through PIL, imported where
+it is used.
 """
 
 from __future__ import annotations
@@ -68,6 +70,14 @@ def clip_color(cos_sim, bg_mask, height: int, width: int,
     return masked_hi, alpha
 
 
+def apply_mask(a_shape_like: torch.Tensor, mask: torch.Tensor):
+    """Broadcast a leading-dim mask to a tensor's shape
+    (ref:image_utils.py:27-34)."""
+    if mask.ndim == 1:
+        mask = mask.reshape(-1, *((1,) * (a_shape_like.ndim - 1)))
+    return torch.broadcast_to(mask, a_shape_like.shape)
+
+
 def compute_mask_ratio(refer_mask, mask) -> float:
     """|refer & mask| / |refer| (ref:image_utils.py:36-49)."""
     refer = np.asarray(refer_mask, bool)
@@ -75,6 +85,69 @@ def compute_mask_ratio(refer_mask, mask) -> float:
         return 0
     inter = np.logical_and(refer, np.asarray(mask, bool))
     return float(np.count_nonzero(inter) / np.count_nonzero(refer))
+
+
+def calculate_iou(label, pred) -> float:
+    label = np.asarray(label, bool)
+    pred = np.asarray(pred, bool)
+    union = np.count_nonzero(label | pred)
+    if union == 0:
+        return 0.0
+    return float(np.count_nonzero(label & pred) / union)
+
+
+def write_video(frames, path: str, fps: int = 10) -> str:
+    """Write (H, W, 3) frames (uint8, or float in [0, 1]; or image
+    paths) to an mp4 (ref:image_utils.py:121-140) with cv2, else with
+    imageio; raises when neither can write it. Returns the path."""
+    if isinstance(frames[0], str):
+        frames = [read_image(p) for p in frames]
+    frames = [np.asarray(f) for f in frames]
+    if frames[0].dtype != np.uint8:
+        frames = [np.clip(f * 255, 0, 255).astype(np.uint8) for f in frames]
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        h, w = frames[0].shape[:2]
+        out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                              (w, h))
+        if out.isOpened():
+            for f in frames:
+                out.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+            out.release()
+            return path
+    try:
+        import imageio
+    except ImportError:
+        why = "is not installed" if cv2 is None else f"cannot open {path}"
+        raise ImportError(f"write_video: cv2 {why} and imageio is not "
+                          f"installed; install opencv-python or imageio"
+                          ) from None
+    imageio.mimwrite(path, frames, fps=fps)
+    return path
+
+
+# ScanNet NYU40 label palette (ref:utils/general_utils.py:199-223)
+NYU40_COLORS = np.array([
+    (0, 0, 0), (174, 199, 232), (152, 223, 138), (31, 119, 180),
+    (255, 187, 120), (188, 189, 34), (140, 86, 75), (255, 152, 150),
+    (214, 39, 40), (197, 176, 213), (148, 103, 189), (196, 156, 148),
+    (23, 190, 207), (178, 76, 76), (247, 182, 210), (66, 188, 102),
+    (219, 219, 141), (140, 57, 197), (202, 185, 52), (51, 176, 203),
+    (200, 54, 131), (92, 193, 61), (78, 71, 183), (172, 114, 82),
+    (255, 127, 14), (91, 163, 138), (153, 98, 156), (140, 153, 101),
+    (158, 218, 229), (100, 125, 154), (178, 127, 135), (120, 185, 128),
+    (146, 111, 194), (44, 160, 44), (112, 128, 144), (96, 207, 209),
+    (227, 119, 194), (213, 92, 176), (94, 106, 211), (82, 84, 163),
+    (100, 85, 144)], np.uint8)
+
+
+def nyu40_colorize(labels: np.ndarray) -> np.ndarray:
+    """(H, W) int labels in [0, 40] -> (H, W, 3) uint8 colors."""
+    lab = np.clip(np.asarray(labels, np.int64), 0, len(NYU40_COLORS) - 1)
+    return NYU40_COLORS[lab]
 
 
 def read_image(path: str, mode: str = "RGB") -> np.ndarray:

@@ -866,3 +866,68 @@ def test_mono_rows_kernel_edge_cases_bit_exact(cuda, n, m, c, blk, span):
     want = mono_rows_plain(table, idx, blk, span)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert bool((~want.any(dim=1)).any()) == (span < n)
+
+
+@pytest.mark.parametrize("n,eps,min_samples", [(20_000, 0.2, 12),
+                                               (3000, 0.35, 1)])
+def test_dbscan_on_card_equals_plain(cuda, n, eps, min_samples,
+                                    monkeypatch):
+    """The device DBSCAN's labels equal to its plain twin's (sklearn's,
+    tests/test_torch_dbscan.py), blobs with noise and shared borders;
+    chunked candidate pairs too."""
+    from goi_tpu_torch.app import dbscan as dbscan_mod
+    from goi_tpu_torch.app.dbscan import dbscan, dbscan_plain
+    rng = np.random.default_rng(n)
+    centers = rng.uniform(-2, 2, (8, 3))
+    pts = np.concatenate([c + rng.normal(0, 0.3, (n // 10, 3))
+                          for c in centers]
+                         + [rng.uniform(-3, 3, (n - 8 * (n // 10), 3))])
+    pts = torch.as_tensor(pts.astype(np.float32), device=cuda)
+    want = dbscan_plain(pts, eps, min_samples)
+    assert want.device == pts.device
+    for budget in (1 << 25, 1 << 16):
+        monkeypatch.setattr(dbscan_mod, "PAIR_BUDGET", budget)
+        got = dbscan(pts, eps, min_samples)
+        assert got.device == pts.device and torch.equal(got, want)
+    assert int(want.max()) >= 1
+
+
+def test_group_points_and_render_batch_on_card_match_cpu(cuda):
+    from goi_tpu_torch.app.session import QuerySession
+    from goi_tpu_torch.raster.render import render_batch
+    scene = _scene(3000, 10, 5, "cpu")
+    sems = torch.zeros(3000, 10)
+    sems[:1500, 1] = 3.0
+    sems[1500:, 5] = 3.0
+    scene = scene.replace(semantics=sems)
+    lut = torch.as_tensor(np.random.default_rng(1).normal(
+        0, 1, (10, 64)).astype(np.float32))
+    decoder = SemanticDecoder([torch.eye(10) * 4.0], [torch.zeros(10)])
+    cfg = RasterConfig(max_instances=1 << 16)
+    masks, keeps = [], []
+    for dev in ("cpu", cuda):
+        sess = QuerySession(scene, decoder, lut, cfg, device=dev)
+        sess.set_text(lut[1] / torch.linalg.norm(lut[1]) * 10.0)
+        sess.retrieve()
+        cam = _cam(dev)
+        with torch.no_grad():
+            out = render(sess.scene, cam, sess.bg, cfg)
+        sim = sess.compute_similarity(out["semantics"].reshape(10, -1).T)
+        masks.append((sim > 0).reshape(cam.height, cam.width).cpu().numpy())
+        keeps.append(sess.group_points(cam, masks[0], eps=0.3,
+                                       min_samples=8, ratio_thresh=0.4))
+    assert keeps[0].any()
+    np.testing.assert_array_equal(keeps[1], keeps[0])
+    cams = [Camera.look_at([0.5 * k, 0.4, -4.0], [0, 0, 0], [0, 1, 0], 0.9,
+                           0.7, 160, 120, device=cuda) for k in range(3)]
+    card = render_batch(scene.to(cuda), cams, torch.zeros(3, device=cuda),
+                        cfg)
+    cpu = render_batch(scene, [c.to("cpu") for c in cams], torch.zeros(3),
+                       cfg)
+    for k in ("render", "semantics", "depth", "alpha"):
+        assert card[k].shape[0] == 3
+        torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=5e-5,
+                                   atol=5e-5)
+    for i, cam in enumerate(cams):
+        single = render(scene.to(cuda), cam, torch.zeros(3, device=cuda), cfg)
+        assert torch.equal(card["render"][i], single["render"])

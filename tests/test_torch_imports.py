@@ -60,6 +60,12 @@ RGB_SLICE_MODULES = (
     "train/optim.py", "train/densify.py", "train/rgb.py",
     "train/checkpoint.py", "interop.py", "query/osh.py", "app/session.py",
     "examples/full_pipeline_demo.py")
+# modules of the query-app slice
+APP_SLICE_MODULES = (
+    "utils/pose.py", "app/orbit.py", "app/orbit_ngp.py", "app/dbscan.py",
+    "query/align.py", "query/text_encoder.py", "utils/image.py",
+    "raster/render.py", "viewer/__init__.py", "viewer/web.py",
+    "viewer/app.py", "viewer/server.py", "viewer/__main__.py")
 _GOI_TPU_NAME = re.compile(r"goi_tpu(?!_torch)\b")
 
 
@@ -80,8 +86,8 @@ def _strings_naming_goi_tpu(path: Path):
 
 def test_slice_modules_are_guarded_and_read_no_goi_tpu_file():
     port = ROOT / "goi_tpu_torch"
-    assert {port / m for m in SLICE_MODULES + RGB_SLICE_MODULES} <= \
-        set(FILES)
+    assert {port / m for m in SLICE_MODULES + RGB_SLICE_MODULES
+            + APP_SLICE_MODULES} <= set(FILES)
     bad = [f"{p.relative_to(ROOT)}:{line} names {text!r}"
            for p in FILES if p.is_relative_to(port)
            for line, text in _strings_naming_goi_tpu(p)]
