@@ -98,7 +98,18 @@ exits non-zero without the final result line:
    renders, RasterConfig(debug=True)'s dump, and python -m
    goi_tpu_torch.viewer as a subprocess, its SIBR frame equal to
    render_view's;
-13. a JSON line with every ported kernel's launches (those of the CLIs',
+13. [export] geometry export at full width (goi_tpu_torch/export) on
+   its own seeded scene of 1,000,000 Gaussians on the unit sphere (red
+   above y = 0, blue below): the density grid kernel at 128^3 (timed,
+   held against its plain version on 4096 seeded points and on a 10k
+   scene's whole 32^3 grid), extract_textured_mesh with its defaults
+   (its grid, marching and bake stages timed; the bake renders 26 orbit
+   views at 512x512 through the gather and blend kernels), marching on
+   the card equal to marching on the CPU, the shell's mesh watertight
+   with Euler characteristic 4, radii in its band and oriented toward
+   the lower density, the hemispheres baked red and blue, and the OBJ
+   (+ MTL + PNG), colored point cloud and ellipsoid writers;
+14. a JSON line with every ported kernel's launches (those of the CLIs',
    the demo's and the viewer's processes included), error, times and
    bound; then the final JSON line.
 """
@@ -152,7 +163,7 @@ DENSE_STEPS = 5     # distillation steps with the fused reduce
 N_TRACES = 6        # trace() calls on the main path, cycling the views
 MICRO_ITERS = 5     # steps per figure of the micro-benchmark
 KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "trace",
-                  "prefix_boundary", "mono_rows")
+                  "prefix_boundary", "mono_rows", "density_grid")
 # [widths]: semantic widths between and at the kernels' instances (S_MAX
 # = 64 the widest), past it in channel groups (65, 117 = the pallas
 # blend's widest, 128), lift widths past one warp's 32 lanes (127 =
@@ -200,6 +211,28 @@ APP_OSH_EPOCHS = 300
 # tests/test_torch_train.py's GRAD_TOL (rtol, atol): a small scene's RGB
 # step on the card against the CPU's
 GRAD_TOL = (2e-3, 2e-4)
+# [export]: its own seeded scene, N_GAUSS Gaussians on the unit sphere
+# (isotropic scales uniform in EXPORT_SCALES, opacity EXPORT_OPACITY, DC
+# red above y = 0, blue below), exported by extract_textured_mesh's
+# defaults (EXPORT_RES^3 grid, density_thresh 1.0: a shell ~6 voxels
+# thick, two nested spheres near r = 0.95 and 1.05); the density kernel
+# checked on EXPORT_CHECK[0] seeded points of that grid and on the whole
+# EXPORT_CHECK[2]^3 grid of an EXPORT_CHECK[1]-Gaussian copy, within
+# TOL_DENSITY of the grid's peak (float32 sums in another order,
+# ex2.approx against exp2); every vertex radius in EXPORT_BAND; at least
+# EXPORT_COLOUR of each hemisphere's outer faces baked in its colour
+EXPORT_SCALES = (0.012, 0.018)
+EXPORT_OPACITY = 0.95
+EXPORT_RED, EXPORT_BLUE = (0.9, 0.1, 0.1), (0.1, 0.1, 0.9)
+EXPORT_RES = 128
+EXPORT_CHECK = (4096, 10_000, 32)
+EXPORT_BAND = (0.9, 1.1)
+EXPORT_COLOUR = 0.95
+TOL_DENSITY = 1e-5
+# float32 operations of the density kernel a pair: dz, the dz
+# polynomial's two multiply-adds and the accumulate, and the shared
+# per-Gaussian terms over a thread's 8 points
+OPS_DENSITY = 8
 
 
 def log(*a):
@@ -2284,6 +2317,309 @@ def app_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
+def export_scene(n, seed, device):
+    """[export]'s seeded scene at the published widths (SH 3, 10
+    semantic channels): n Gaussians on the unit sphere, isotropic scales
+    uniform in EXPORT_SCALES, opacity EXPORT_OPACITY, DC colour red
+    where y > 0 and blue where y < 0."""
+    import torch
+    from goi_tpu_torch.core.scene import GaussianScene
+    rng = np.random.default_rng(seed)
+    p = rng.normal(0, 1, (n, 3))
+    p /= np.linalg.norm(p, axis=1, keepdims=True)
+    col = np.where(p[:, 1:2] > 0, [EXPORT_RED], [EXPORT_BLUE])
+    scene = GaussianScene.create(
+        p.astype(np.float32), col.astype(np.float32), sh_degree=3,
+        sem_dim=SEM_DIM, scales=rng.uniform(*EXPORT_SCALES, n).astype(
+            np.float32), device=device)
+    logit = math.log(EXPORT_OPACITY / (1 - EXPORT_OPACITY))
+    return scene.replace(active_sh_degree=3,
+                         opacity=torch.full_like(scene.opacity, logit))
+
+
+def check_density(packed, axes, grid, label, points=None):
+    """The density kernel's grid against density_grid_plain: on the
+    whole grid, or on `points` seeded grid points. Returns the error
+    relative to the grid's peak and the plain version's ms."""
+    import torch
+    from goi_tpu_torch.export.mesh import (PLAIN_PAIRS, density_grid_plain,
+                                           mixture_at)
+    r = axes.shape[0]
+    flat = grid.reshape(-1)
+    if points is None:
+        want, plain_ms = timed_ms(lambda: density_grid_plain(packed, axes))
+        got, what = flat, f"the whole {r}^3 grid"
+        want = want.reshape(-1)
+    else:
+        rng = np.random.default_rng(5)
+        idx = torch.as_tensor(rng.choice(r ** 3, points, replace=False),
+                              device=grid.device)
+        pts = torch.stack([axes[idx // (r * r)], axes[idx // r % r],
+                           axes[idx % r]], 1)
+        per = max(1, PLAIN_PAIRS // max(packed.shape[0], 1))
+
+        def plain():
+            return torch.cat([mixture_at(packed, pts[p:p + per])
+                              for p in range(0, points, per)])
+
+        want, plain_ms = timed_ms(plain)
+        got, what = flat[idx], f"{points} seeded points of the {r}^3 grid"
+    peak = float(grid.max())
+    err = float((got - want).abs().max())
+    if not peak > 0 or err > TOL_DENSITY * peak:
+        raise AssertionError(f"[export] density_grid {label}: {err} against "
+                             f"a peak of {peak} on {what}")
+    log(f"[export] density_grid {label}: kernel vs plain on {what}: max abs "
+        f"err {err:.3e} (peak {peak:.3f}, tolerance {TOL_DENSITY} x peak); "
+        f"plain {plain_ms:.2f} ms")
+    return err, plain_ms
+
+
+def mesh_checks(mesh):
+    """The shell's mesh: every edge shared by exactly two faces, Euler
+    characteristic 4 (two spheres), every vertex radius in EXPORT_BAND,
+    normals toward the lower density (out of the outer sphere, into the
+    inner one)."""
+    v, f = mesh.vertices, mesh.faces
+    edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]],
+                                    f[:, [2, 0]]]), axis=1)
+    uniq, counts = np.unique(edges, axis=0, return_counts=True)
+    euler = len(v) - len(uniq) + len(f)
+    rad = np.linalg.norm(v, axis=1)
+    tri = v[f].astype(np.float64)
+    c = tri.mean(axis=1)
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    outer = np.linalg.norm(c, axis=1) > 1.0
+    toward = (n * c).sum(1)
+    oriented = float(np.where(outer, toward > 0, toward < 0).mean())
+    log(f"[export] mesh: {len(f)} faces, {len(v)} vertices, {len(uniq)} "
+        f"edges, Euler {euler}, radii {rad.min():.4f}..{rad.max():.4f}, "
+        f"{int(outer.sum())} outer faces, oriented share {oriented:.5f}")
+    if not (counts == 2).all():
+        raise AssertionError(f"[export] {int((counts != 2).sum())} edges not "
+                             f"shared by exactly two faces")
+    if euler != 4:
+        raise AssertionError(f"[export] Euler characteristic {euler} != 4")
+    if rad.min() < EXPORT_BAND[0] or rad.max() > EXPORT_BAND[1]:
+        raise AssertionError(f"[export] radii {rad.min()}..{rad.max()} "
+                             f"outside {EXPORT_BAND}")
+    if oriented < 0.99:
+        raise AssertionError(f"[export] oriented share {oriented}")
+    return outer
+
+
+def hemisphere_colours(mesh, texture_size, outer):
+    """Each outer face's chart texels, averaged: red above y = 0.1 and
+    blue below y = -0.1 (the dominant channel over twice the other)."""
+    from goi_tpu_torch.export.texture import _chart_layout
+    v, f = mesh.vertices, mesh.faces
+    _, bary, cell_pts, side = _chart_layout(len(f), texture_size)
+    cell = texture_size / side
+    fi = np.arange(len(f))
+    px = np.clip((((fi % side) * cell)[:, None] + cell_pts[None, :, 0])
+                 .astype(np.int64), 0, texture_size - 1)
+    py = np.clip((((fi // side) * cell)[:, None] + cell_pts[None, :, 1])
+                 .astype(np.int64), 0, texture_size - 1)
+    face_rgb = mesh.albedo[py, px].mean(1)                 # (F, 3)
+    cy = v[f][:, :, 1].mean(1)
+    shares = {}
+    for name, sel, hi, lo in (("red", outer & (cy > 0.1), 0, 2),
+                              ("blue", outer & (cy < -0.1), 2, 0)):
+        rgb = face_rgb[sel]
+        shares[name] = float((rgb[:, hi] > 2 * rgb[:, lo]).mean())
+        mean = rgb.mean(0)
+        log(f"[export] {name} hemisphere: {int(sel.sum())} outer faces, "
+            f"mean texel rgb {np.round(mean, 4).tolist()}, share with "
+            f"{name} > 2x the other {shares[name]:.5f}")
+        if not (mean[hi] > 2 * mean[lo] and shares[name] >= EXPORT_COLOUR):
+            raise AssertionError(f"[export] the {name} hemisphere baked "
+                                 f"{mean.tolist()}, share {shares[name]}")
+    return shares
+
+
+def export_phase():
+    """[export]: geometry export at full width on its own seeded 1M
+    shell scene: the density grid kernel (timed, against its plain
+    version on seeded points and on a small scene's whole grid),
+    marching tetrahedra on the card against the CPU, the shell mesh's
+    topology, extract_textured_mesh with its defaults (the bake renders
+    26 orbit views through the gather and blend kernels), the hemispheres'
+    colours, and the OBJ, point-cloud and ellipsoid writers. Returns
+    (the path's kernel launches, the density kernel's stats)."""
+    import os
+    import shutil
+    import torch
+    from goi_tpu_torch.core.ply import read_ply
+    from goi_tpu_torch.export import marching as marching_mod
+    from goi_tpu_torch.export import mesh as mesh_mod
+    from goi_tpu_torch.export import texture as texture_mod
+    from goi_tpu_torch.raster.render import RasterConfig, suggest_budgets
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    scene = export_scene(N_GAUSS, 0, "cuda")
+    bg = torch.zeros(3, device="cuda")
+    res = EXPORT_RES
+
+    # the density kernel at the main path's shape, and its checks
+    lo, hi = mesh_mod.grid_bounds(scene, None)
+    axes = torch.as_tensor(mesh_mod.grid_axes(lo, hi, res), device="cuda")
+    packed = mesh_mod.pack_gaussians(scene)
+    grid = mesh_mod.mixture_grid(packed, axes)
+    ms = median_ms(lambda: mesh_mod.mixture_grid(packed, axes), iters=3,
+                   warmup=1)
+    err, plain_ms = check_density(packed, axes, grid, f"{N_GAUSS // 1000}k",
+                                  points=EXPORT_CHECK[0])
+    pairs = packed.shape[0] * res ** 3
+    # the least time: one ex2 a pair on the special-function units (16
+    # lanes a clock on each SM against 128 float32 lanes) against ~8
+    # float32 operations a pair and the bytes (inputs once, grid once)
+    bound_s = max(pairs * 16 / PEAK_FP32_PER_S,
+                  pairs * OPS_DENSITY / PEAK_FP32_PER_S,
+                  (packed.numel() * 4 + axes.numel() * 4 + res ** 3 * 4)
+                  / PEAK_BYTES_PER_S)
+    log(f"[export] density_grid {packed.shape[0]} Gaussians x {res}^3 "
+        f"points ({pairs:.4g} pairs): kernel {ms:.2f} ms (median of 3), "
+        f"bound {bound_s * 1e3:.2f} ms (operations: the exponentials), "
+        f"{pairs / (ms * 1e-3):.4g} pairs/s")
+    small = export_scene(EXPORT_CHECK[1], 1, "cuda")
+    s_lo, s_hi = mesh_mod.grid_bounds(small, None)
+    s_axes = torch.as_tensor(mesh_mod.grid_axes(s_lo, s_hi, EXPORT_CHECK[2]),
+                             device="cuda")
+    s_packed = mesh_mod.pack_gaussians(small)
+    s_grid, s_ms = timed_ms(lambda: mesh_mod.mixture_grid(s_packed, s_axes))
+    check_density(s_packed, s_axes, s_grid, f"{EXPORT_CHECK[1] // 1000}k")
+    log(f"[export] density_grid {EXPORT_CHECK[1] // 1000}k x "
+        f"{EXPORT_CHECK[2]}^3: kernel {s_ms:.3f} ms")
+    del small, s_packed, s_grid, packed, grid
+
+    # the stages of extract_textured_mesh, timed where the entry point
+    # calls them: density_tensor (grid), marching_tetrahedra, bake_texture
+    stages = {}
+    orig = {"density_tensor": mesh_mod.density_tensor,
+            "marching_tetrahedra": marching_mod.marching_tetrahedra,
+            "bake_texture": texture_mod.bake_texture}
+    kept = {}
+
+    def timed(name, mod):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*a, **kw)
+            torch.cuda.synchronize()
+            stages[name] = time.perf_counter() - t0
+            kept[name] = (a, out)
+            return out
+        setattr(mod, name, run)
+
+    timed("density_tensor", mesh_mod)
+    timed("marching_tetrahedra", marching_mod)
+    timed("bake_texture", texture_mod)
+    try:
+        # the budget of the bake's 26 views, from the mesh it will bake
+        mesh0 = marching_mod.extract_mesh(scene)
+        center, radius = texture_mod.bake_center_radius(mesh0.vertices)
+        cams = [c for _, c in texture_mod.orbit_cameras(center, radius,
+                                                        device="cuda")]
+        mi, _ = suggest_budgets(scene, cams, margin=1.2)
+        cfg = RasterConfig(max_instances=mi)
+        log(f"[export] bake budget max_instances={mi} over the 26 views")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        mesh = texture_mod.extract_textured_mesh(scene, bg, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        mesh_mod.density_tensor = orig["density_tensor"]
+        marching_mod.marching_tetrahedra = orig["marching_tetrahedra"]
+        texture_mod.bake_texture = orig["bake_texture"]
+    for k in ("density_grid", "gather", "blend"):
+        if launches[k] <= 0:
+            raise AssertionError(f"[export] {k} not launched: {launches}")
+    if launches["density_grid"] != 1 or launches["gather"] < 26:
+        raise AssertionError(f"[export] launches {launches}")
+    if not (np.array_equal(mesh.vertices, mesh0.vertices)
+            and np.array_equal(mesh.faces, mesh0.faces)):
+        raise AssertionError("[export] two extractions of one scene differ")
+    log(f"[export] extract_textured_mesh (resolution {res}, texture 1024, "
+        f"26 views at 512x512, density_thresh 1.0): {wall:.2f} s; grid "
+        f"{stages['density_tensor']:.3f} s, marching "
+        f"{stages['marching_tetrahedra']:.3f} s, bake "
+        f"{stages['bake_texture']:.3f} s; launches {launches}")
+
+    # marching on the card against the CPU on the same grid
+    (grid, iso, origin, voxel), _ = kept["marching_tetrahedra"]
+    cpu = orig["marching_tetrahedra"](grid.cpu(), iso, origin, voxel)
+    if not (np.array_equal(cpu.vertices, mesh.vertices)
+            and np.array_equal(cpu.faces, mesh.faces)):
+        raise AssertionError("[export] marching on the card != on the CPU")
+    log(f"[export] marching_tetrahedra on the card equal to the CPU's "
+        f"(vertices and faces)")
+    outer = mesh_checks(mesh)
+    if mesh.albedo.shape != (1024, 1024, 3) or \
+            mesh.uvs.shape != (3 * len(mesh.faces), 2):
+        raise AssertionError(f"[export] albedo {mesh.albedo.shape} uvs "
+                             f"{mesh.uvs.shape}")
+    hemisphere_colours(mesh, 1024, outer)
+
+    # the writers
+    root = tempfile.mkdtemp(prefix="goi_export_")
+    try:
+        t0 = time.perf_counter()
+        obj = os.path.join(root, "shell.obj")
+        mesh.write_obj(obj)
+        t_obj = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_pc = mesh_mod.export_colored_point_cloud(
+            os.path.join(root, "points.ply"), scene)
+        t_pc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_ell = mesh_mod.export_ellipsoids_obj(
+            os.path.join(root, "ellipsoids.obj"), scene)
+        t_ell = time.perf_counter() - t0
+        for name in ("shell.obj", "shell.mtl", "shell.png", "points.ply",
+                     "ellipsoids.obj"):
+            if not os.path.exists(os.path.join(root, name)):
+                raise AssertionError(f"[export] {name} not written")
+        counts = {"v ": 0, "vt": 0, "f ": 0}
+        with open(obj) as fh:
+            for line in fh:
+                if line[:2] in counts:
+                    counts[line[:2]] += 1
+        if counts != {"v ": len(mesh.vertices), "vt": 3 * len(mesh.faces),
+                      "f ": len(mesh.faces)}:
+            raise AssertionError(f"[export] OBJ reloads {counts}")
+        if n_pc != N_GAUSS or len(read_ply(os.path.join(
+                root, "points.ply"))["x"]) != N_GAUSS:
+            raise AssertionError(f"[export] point cloud {n_pc}")
+        with open(os.path.join(root, "ellipsoids.obj")) as fh:
+            ell = sum(1 for line in fh if line[:2] in ("v ", "f "))
+        if n_ell != min(100_000, N_GAUSS) or ell != 14 * n_ell:
+            raise AssertionError(f"[export] ellipsoids {n_ell}, {ell} lines")
+        sizes = {name: os.path.getsize(os.path.join(root, name))
+                 for name in sorted(os.listdir(root))}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[export] writes: write_obj {t_obj:.2f} s (OBJ reloads "
+        f"{counts['f ']} faces), colored point cloud {t_pc:.2f} s ({n_pc} "
+        f"points), ellipsoids {t_ell:.2f} s ({n_ell}); bytes {sizes}")
+    log(f"[export] stages (s): grid {stages['density_tensor']:.3f}, "
+        f"marching {stages['marching_tetrahedra']:.3f}, bake "
+        f"{stages['bake_texture']:.3f}, writes {t_obj + t_pc + t_ell:.3f}; "
+        f"{len(mesh.faces)} faces, {len(mesh.vertices)} vertices; peak "
+        f"{peak_gb:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s")
+    stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_s * 1e3, bound_by="operations",
+                 library_ms=None,
+                 note=f"plain_ms: the plain version on {EXPORT_CHECK[0]} of "
+                      f"the {res ** 3} grid points (all Gaussians), the "
+                      f"kernel's ms on the whole grid")
+    return launches, stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2462,7 +2798,13 @@ def main() -> int:
     for k, n in app_phase().items():
         launches[k] = launches.get(k, 0) + n
 
-    # ---- 13. kernels line, result ----
+    # ---- 13. geometry export ----
+    torch.cuda.empty_cache()
+    export_launches, stats["density_grid"] = export_phase()
+    for k, n in export_launches.items():
+        launches[k] = launches.get(k, 0) + n
+
+    # ---- 14. kernels line, result ----
     kernels = [
         dict(name="expand_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",
@@ -2496,6 +2838,10 @@ def main() -> int:
              source="goi_tpu_torch/raster/csrc/mono_rows.cu",
              replaces="examples/micro_sortpayload.py:85",
              launches=launches["mono_rows"], **stats["mono_rows"]),
+        dict(name="density_grid", route="cuda",
+             source="goi_tpu_torch/raster/csrc/density_grid.cu",
+             replaces="goi_tpu/export/mesh.py:24-71 (XLA, no Pallas)",
+             launches=launches["density_grid"], **stats["density_grid"]),
     ]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")

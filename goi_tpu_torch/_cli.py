@@ -37,6 +37,7 @@ def resolve_device(name: str) -> torch.device:
 
 def kernel_wrappers() -> dict:
     """Kernel name -> its wrapper (its launch count is `launches`)."""
+    from goi_tpu_torch.export.mesh import mixture_grid
     from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
     from goi_tpu_torch.raster.cuda_trace import trace_fwd
     from goi_tpu_torch.raster.gather import expand_gather, mono_rows
@@ -44,7 +45,7 @@ def kernel_wrappers() -> dict:
     return {"gather": expand_gather, "blend": blend_fwd,
             "blend_bwd": blend_bwd, "prefix": prefix_blocks,
             "trace": trace_fwd, "prefix_boundary": prefix_boundary,
-            "mono_rows": mono_rows}
+            "mono_rows": mono_rows, "density_grid": mixture_grid}
 
 
 def launch_counts() -> dict:

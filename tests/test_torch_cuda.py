@@ -931,3 +931,90 @@ def test_group_points_and_render_batch_on_card_match_cpu(cuda):
     for i, cam in enumerate(cams):
         single = render(scene.to(cuda), cam, torch.zeros(3, device=cuda), cfg)
         assert torch.equal(card["render"][i], single["render"])
+
+
+def _packed_mixture(n, seed, device):
+    """(n, 12) packed Gaussians of a seeded anisotropic scene."""
+    from goi_tpu_torch.export.mesh import pack_gaussians
+    rng = np.random.default_rng(seed)
+    s = GaussianScene.create(
+        rng.normal(0, 0.5, (max(n, 1), 3)).astype(np.float32), sh_degree=0,
+        sem_dim=0, scales=rng.uniform(0.03, 0.2, max(n, 1)).astype(
+            np.float32), device=device)
+    s = s.replace(
+        scaling=torch.as_tensor(np.log(rng.uniform(
+            0.02, 0.25, (max(n, 1), 3))).astype(np.float32), device=device),
+        rotation=torch.as_tensor(rng.normal(0, 1, (max(n, 1), 4)).astype(
+            np.float32), device=device),
+        opacity=torch.as_tensor(rng.uniform(-2, 3, (max(n, 1), 1)).astype(
+            np.float32), device=device))
+    return pack_gaussians(s)[:n].contiguous()
+
+
+@pytest.mark.parametrize("n,r", [(1, 1), (0, 9), (127, 7), (129, 16),
+                                 (1001, 33), (3000, 20)])
+def test_density_grid_kernel_matches_plain(cuda, n, r):
+    """csrc/density_grid.cu against density_grid_plain on the card within
+    1e-5 of the grid's peak (sums in another order, ex2.approx against
+    exp2): odd N, N not a multiple of the 128-Gaussian tile, an empty
+    scene, R = 1 and R not a multiple of the 8 points a thread owns; the
+    same bits on a second launch."""
+    from goi_tpu_torch.export.mesh import density_grid_plain, mixture_grid
+    packed = _packed_mixture(n, n + r, cuda)
+    axes = torch.linspace(-1.2, 1.1, r, device=cuda)
+    before = mixture_grid.launches
+    got = mixture_grid(packed, axes)
+    again = mixture_grid(packed, axes)
+    torch.cuda.synchronize()
+    assert mixture_grid.launches == before + 2
+    want = density_grid_plain(packed, axes)
+    assert got.shape == (r, r, r) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    if n == 0:
+        assert not got.any()
+        return
+    peak = float(want.max())
+    assert peak > 0
+    assert float((got - want).abs().max()) <= 1e-5 * peak
+
+
+def test_density_grid_kernel_at_a_gaussian_centre(cuda):
+    """A grid point on a Gaussian's centre takes its whole weight, and a
+    CUDA scene's density_grid launches the kernel."""
+    from goi_tpu_torch.export.mesh import (density_grid, grid_axes,
+                                           mixture_grid, pack_gaussians)
+    axes = torch.as_tensor(grid_axes(-1.0, 1.0, 12), device=cuda)
+    packed = _packed_mixture(200, 3, cuda)
+    packed[17, :3] = axes[torch.tensor([4, 9, 2], device=cuda)]
+    packed[17, 3] = 0.75
+    got = mixture_grid(packed, axes)
+    torch.cuda.synchronize()
+    alone = mixture_grid(packed[17:18].contiguous(), axes)
+    assert float(alone[4, 9, 2]) == 0.75
+    assert float(got[4, 9, 2]) >= 0.75
+    scene = _scene(500, 3, 4, cuda)
+    before = mixture_grid.launches
+    grid, origin, voxel = density_grid(scene, resolution=24, chunk=5)
+    assert mixture_grid.launches == before + 1
+    lo = float(origin[0])
+    want = mixture_grid(pack_gaussians(scene), torch.as_tensor(
+        grid_axes(lo, lo + voxel * 24, 24), device=cuda))
+    np.testing.assert_array_equal(grid, want.cpu().numpy())
+
+
+def test_marching_tetrahedra_on_card_equals_cpu(cuda):
+    """The same vertices and faces from a grid on the card as from it on
+    the CPU."""
+    from goi_tpu_torch.export.marching import marching_tetrahedra
+    rng = np.random.default_rng(0)
+    g = rng.normal(0, 1, (17, 18, 19)).astype(np.float32)
+    ax = np.linspace(-1, 1, 24)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    sphere = (1 - np.sqrt(x * x + y * y + z * z) / 0.7).astype(np.float32)
+    for grid, iso in ((g, 0.2), (sphere, 0.0)):
+        cpu = marching_tetrahedra(grid, iso, origin=(-1, 0.5, 2), voxel=0.1)
+        card = marching_tetrahedra(torch.as_tensor(grid, device=cuda), iso,
+                                   origin=(-1, 0.5, 2), voxel=0.1)
+        assert len(cpu.faces) > 100
+        np.testing.assert_array_equal(card.vertices, cpu.vertices)
+        np.testing.assert_array_equal(card.faces, cpu.faces)

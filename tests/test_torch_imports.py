@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from goi_tpu_torch.export import mesh as export_mesh
 from goi_tpu_torch.raster import _nvcc, cuda_blend, cuda_trace, gather, reduce
 
 torch.set_num_threads(1)
@@ -66,6 +67,10 @@ APP_SLICE_MODULES = (
     "query/align.py", "query/text_encoder.py", "utils/image.py",
     "raster/render.py", "viewer/__init__.py", "viewer/web.py",
     "viewer/app.py", "viewer/server.py", "viewer/__main__.py")
+# modules of the export slice
+EXPORT_SLICE_MODULES = (
+    "export/__init__.py", "export/marching.py", "export/mesh.py",
+    "export/texture.py")
 _GOI_TPU_NAME = re.compile(r"goi_tpu(?!_torch)\b")
 
 
@@ -87,7 +92,7 @@ def _strings_naming_goi_tpu(path: Path):
 def test_slice_modules_are_guarded_and_read_no_goi_tpu_file():
     port = ROOT / "goi_tpu_torch"
     assert {port / m for m in SLICE_MODULES + RGB_SLICE_MODULES
-            + APP_SLICE_MODULES} <= set(FILES)
+            + APP_SLICE_MODULES + EXPORT_SLICE_MODULES} <= set(FILES)
     bad = [f"{p.relative_to(ROOT)}:{line} names {text!r}"
            for p in FILES if p.is_relative_to(port)
            for line, text in _strings_naming_goi_tpu(p)]
@@ -245,6 +250,29 @@ def test_mono_rows_wrapper_raises_without_library(no_library):
     with pytest.raises(ValueError):
         gather.mono_rows(torch.ones(8), idx)
     assert gather.mono_rows.launches == before
+
+
+def test_density_grid_wrapper_raises_without_library(no_library):
+    before = export_mesh.mixture_grid.launches
+    packed = torch.zeros(5, export_mesh.PACK)
+    axes = torch.linspace(-1, 1, 4)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        export_mesh.mixture_grid(packed, axes)
+    with pytest.raises(TypeError):
+        export_mesh.mixture_grid(packed.double(), axes)
+    with pytest.raises(ValueError):
+        export_mesh.mixture_grid(torch.zeros(5, 10), axes)
+    assert export_mesh.mixture_grid.launches == before
+
+
+def test_export_modules_need_neither_imageio_nor_sklearn():
+    """The card machine has neither: the export writes its PNG with PIL
+    and inpaints by scipy's cKDTree."""
+    files = [ROOT / "goi_tpu_torch" / m for m in EXPORT_SLICE_MODULES]
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
+           for p in files for line, mod in _imports(p)
+           if mod.split(".")[0] in ("imageio", "sklearn")]
+    assert not bad, "\n".join(bad)
 
 
 def _atomic_float_sums(path: Path):
