@@ -109,7 +109,19 @@ exits non-zero without the final result line:
    with Euler characteristic 4, radii in its band and oriented toward
    the lower density, the hemispheres baked red and blue, and the OBJ
    (+ MTL + PNG), colored point cloud and ellipsoid writers;
-14. a JSON line with every ported kernel's launches (those of the CLIs',
+14. [towers] the frozen towers at full width with seeded random weights
+   (the EVA02-CLIP-bigE-14-plus text tower, GroundingDINO Swin-T +
+   BERT-base, SAM ViT-H; synthetic BPE and BERT vocabularies): each
+   tower at reduced depth on the card against the CPU within TOL_TOWER;
+   then behind QueryWebApp on a seeded 1M scene, a prompt through the
+   tokenizer, the tower and the aligner into set_text (bit for bit
+   encode_and_align's), a frame, and the OSH finetune with no client
+   mask, its mask from res_fn = TorchRESProvider.predict_mask on the
+   rendered view (exactly TOWER_BOXES boxes reach SAM; the mask has the
+   view's shape, is not empty and is the same on a second run); the
+   prompt, GroundingDINO, one encoder layer's ms_deform_attn_core, SAM
+   set_image and decode, and res_fn times and the peak memory;
+15. a JSON line with every ported kernel's launches (those of the CLIs',
    the demo's and the viewer's processes included), error, times and
    bound; then the final JSON line.
 """
@@ -233,6 +245,29 @@ TOL_DENSITY = 1e-5
 # polynomial's two multiply-adds and the accumulate, and the shared
 # per-Gaussian terms over a thread's 8 points
 OPS_DENSITY = 8
+# [towers]: the frozen towers at full width with seeded random weights
+# (EVA02-CLIP-bigE-14-plus text, GroundingDINO Swin-T + BERT-base, SAM
+# ViT-H) behind the query app's text_fn and res_fn; synthetic vocab
+# assets (a BPE merge table of TOWER_MERGES, make_test_vocab of
+# TOWER_WORDS). The box threshold is halfway between the TOWER_BOXES-th
+# and the next detector score of the seeded run, so that many boxes reach
+# SAM. Card against CPU at reduced depth (TOWER_CHECK_DEPTH: text layers,
+# SAM blocks with the last one global, GroundingDINO encoder = decoder
+# layers), each output within TOL_TOWER (rtol, atol relative to the
+# peak) of the CPU's: float32 on both, GEMMs summed in another order
+# through up to 12 Swin and 12 BERT blocks. The decoder's final norm is
+# scaled to 1/16 so that the contrastive logits of two random unit-
+# variance 256-d vectors have unit scale, as a trained head's calibrated
+# scores do, rather than saturating the sigmoid at 1.0
+TOWER_PROMPT = "the red chair"
+TOWER_WORDS = ("the", "red", "chair", "a", "blue", "sofa", "near", "lamp")
+TOWER_MERGES = ("t h", "th e</w>", "r e", "re d</w>", "c h", "a i",
+                "ch ai", "chai r</w>", "s o", "so f", "sof a</w>", "b l",
+                "bl u", "blu e</w>")
+TOWER_BOXES = 4
+TOWER_CHECK_DEPTH = 2, 2, 1
+TOL_TOWER = (1e-3, 1e-4)
+TOWER_LOGIT_SCALE = 1.0 / 16
 
 
 def log(*a):
@@ -2620,6 +2655,319 @@ def export_phase():
     return launches, stats
 
 
+def tower_assets(root):
+    """The synthetic vocab assets: a gzip BPE merge table in the public
+    table's format and a BERT vocab dict."""
+    import gzip
+    import os
+    from goi_tpu_torch.query.bert import make_test_vocab
+    bpe = os.path.join(root, "bpe_merges.txt.gz")
+    with gzip.open(bpe, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(TOWER_MERGES) + "\n")
+    return bpe, make_test_vocab(TOWER_WORDS)
+
+
+def cpu_copy(build, model):
+    """The same tower built on the CPU with `model`'s weights."""
+    twin = build("cpu")
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return twin.eval()
+
+
+def towers_card_vs_cpu(bpe, vocab, view):
+    """Each tower at full width and reduced depth on the card and on the
+    CPU through the same modules and weights."""
+    import dataclasses
+    import torch
+    from goi_tpu_torch.query import clip_text, grounding, sam
+    from goi_tpu_torch.query.bert import BertTokenizer
+    n_text, n_sam, n_dino = TOWER_CHECK_DEPTH
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {}
+
+    def check(name, a, b):
+        ok, e = close_to_peak(a.cpu(), b, *TOL_TOWER)
+        if not ok:
+            raise AssertionError(f"[towers] {name}: card vs CPU {e}")
+        errs[name] = e
+
+    with torch.inference_mode():
+        cfg = dataclasses.replace(clip_text.CLIP_TEXT_BIGE, layers=n_text)
+        card = clip_text.init_clip_text_(
+            clip_text.CLIPTextTransformer(cfg, device="cuda"), gen)
+        cpu = cpu_copy(lambda d: clip_text.CLIPTextTransformer(cfg, d), card)
+        toks = clip_text.ClipTokenizer(bpe, cfg.context_length)(
+            [TOWER_PROMPT, "a blue sofa near a lamp"])
+        a, b = card(torch.as_tensor(toks, device="cuda")), cpu(
+            torch.as_tensor(toks))
+        check("text eot", a["eot"], b["eot"])
+        check("text tokens", a["tokens"], b["tokens"])
+        del card, cpu
+
+        scfg = dataclasses.replace(sam.SAM_VIT_H, depth=n_sam,
+                                   global_attn=(n_sam - 1,))
+        card = sam.SamTorch(sam.init_sam_(sam.SAM(scfg, device="cuda"), gen))
+        cpu = sam.SamTorch(cpu_copy(lambda d: sam.SAM(scfg, d), card.model))
+        for s in (card, cpu):
+            s.set_image(view)
+        check("sam embedding", card._emb, cpu._emb)
+        boxes = np.array([[100, 80, 700, 600], [400, 300, 1200, 900]],
+                         np.float32)
+        masks = []
+        for s in (card, cpu):
+            pe = s.model.prompt_encoder
+            sparse = pe.encode_boxes(torch.as_tensor(
+                boxes, device=s.device) * (1024 / max(view.shape[:2])))
+            masks.append(s.model.mask_decoder(
+                cpu._emb.to(s.device).expand(2, -1, -1, -1), pe.dense_pe(),
+                sparse, pe.no_mask(2), False))
+        check("sam mask logits", masks[0][0], masks[1][0])
+        check("sam iou", masks[0][1], masks[1][1])
+        del card, cpu, masks
+
+        gcfg = dataclasses.replace(grounding.GDINO_SWINT, enc_layers=n_dino,
+                                   dec_layers=n_dino)
+        tok = BertTokenizer(vocab)
+        card = grounding.GroundingDINOTorch(grounding.init_grounding_(
+            grounding.GroundingDINO(gcfg, device="cuda"), gen), tok)
+        cpu = grounding.GroundingDINOTorch(cpu_copy(
+            lambda d: grounding.GroundingDINO(gcfg, d), card.model), tok)
+        outs = []
+        for det in (card, cpu):
+            args, _ = det.inputs(view, TOWER_PROMPT)
+            enc = det.model.encode(*args)
+            outs.append((enc, det.model.select(enc)))
+        (ea, sa), (eb, sb) = outs
+        check("dino memory", ea["memory"], eb["memory"])
+        check("dino memory_text", ea["memory_text"], eb["memory_text"])
+        check("dino scores", sa["score"], sb["score"])
+        # the selection: near-equal scores may swap places, so the CPU
+        # decodes the card's selection, whose CPU scores must be the
+        # CPU's own top ones within the tolerance
+        idx = sa["topk_idx"].cpu()
+        top = sb["score"].gather(1, idx)
+        check("dino selected scores", top, sb["score"].topk(
+            gcfg.num_queries).values)
+        same = int((idx == sb["topk_idx"]).sum())
+        da = card.model.decode(ea, sa)
+        db = cpu.model.decode(eb, dict(sb, topk_idx=idx))
+        check("dino boxes", da["pred_boxes"], db["pred_boxes"])
+        fin = torch.isfinite(db["pred_logits"])
+        if not torch.equal(torch.isfinite(da["pred_logits"]).cpu(), fin):
+            raise AssertionError("[towers] dino logits: -inf differ")
+        la = da["pred_logits"]
+        check("dino logits", la[fin.to(la.device)], db["pred_logits"][fin])
+    log(f"[towers] card vs CPU at full width, depth {n_text} text layers, "
+        f"{n_sam} SAM blocks (the last global), {n_dino} + {n_dino} "
+        f"GroundingDINO layers; max |diff| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (rtol {TOL_TOWER[0]}, atol {TOL_TOWER[1]} of the peak); "
+        f"{same}/{gcfg.num_queries} queries selected in the CPU's order")
+
+
+def towers_phase():
+    """[towers]: the frozen towers at full width behind the query app:
+    a prompt through ClipTokenizer, the bigE text tower and the aligner
+    into set_text over HTTP (bit for bit encode_and_align's), a frame,
+    then the OSH fine-tune with no client mask, its mask from res_fn =
+    TorchRESProvider(GroundingDINO Swin-T/BERT-base, SAM ViT-H) on the
+    rendered view. Returns the kernel launches of that path."""
+    import shutil
+    import torch
+    from goi_tpu_torch.app.session import QuerySession
+    from goi_tpu_torch.query import deform_attn
+    from goi_tpu_torch.query.align import VisionLanguageAlign
+    from goi_tpu_torch.query.bert import BertTokenizer
+    from goi_tpu_torch.query.clip_text import (CLIP_TEXT_BIGE,
+                                               CLIPTextTransformer,
+                                               TorchCLIPTextEncoder,
+                                               init_clip_text_)
+    from goi_tpu_torch.query.grounding import (GDINO_SWINT, GroundingDINO,
+                                               GroundingDINOTorch,
+                                               init_grounding_)
+    from goi_tpu_torch.query.res import TorchRESProvider
+    from goi_tpu_torch.query.sam import SAM, SAM_VIT_H, SamTorch, init_sam_
+    from goi_tpu_torch.query.text_encoder import encode_and_align
+    from goi_tpu_torch.raster.render import RasterConfig, suggest_budgets
+    from goi_tpu_torch.semantic.codebook import SemanticDecoder
+    from goi_tpu_torch.viewer.app import QueryWebApp
+    from goi_tpu_torch.viewer.web import orbit_view_camera
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    root = tempfile.mkdtemp(prefix="goi_towers_")
+    app = None
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        bpe, vocab = tower_assets(root)
+        scene = make_scene(N_GAUSS, seed=0, device="cuda")
+        decoder = SemanticDecoder.create(torch.Generator().manual_seed(0),
+                                         dim_in=SEM_DIM, dim_out=TAB_LEN,
+                                         device="cuda")
+        lut = torch.as_tensor(np.random.default_rng(2).normal(
+            0, 1, (TAB_LEN, APE_DIM)).astype(np.float32), device="cuda")
+        view_q = dict(APP_VIEW, w=WIDTH, h=HEIGHT)
+        cam = orbit_view_camera(view_q, 50.0, "cuda")
+        cfg = RasterConfig(max_instances=suggest_budgets(scene, [cam],
+                                                         margin=1.5)[0])
+        sess = QuerySession(scene, decoder, lut, cfg,
+                            white_background=False, device="cuda")
+        view = sess.render_view(cam, overlay=False)
+        towers_card_vs_cpu(bpe, vocab, view)
+
+        # the towers at full width, seeded on the card
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            text = init_clip_text_(CLIPTextTransformer(CLIP_TEXT_BIGE,
+                                                       device="cuda"), gen)
+            dino = init_grounding_(GroundingDINO(GDINO_SWINT, device="cuda"),
+                                   gen)
+            dino.transformer.decoder.norm.weight.mul_(TOWER_LOGIT_SCALE)
+            sam_model = init_sam_(SAM(SAM_VIT_H, device="cuda"), gen)
+        torch.cuda.synchronize()
+        n_par = {k: sum(p.numel() for p in m.parameters())
+                 for k, m in (("text", text), ("dino", dino),
+                              ("sam", sam_model))}
+        log(f"[towers] built on the card in {time.perf_counter() - t0:.1f} "
+            f"s: bigE text {n_par['text']:,} parameters, GroundingDINO "
+            f"Swin-T + BERT-base {n_par['dino']:,}, SAM ViT-H "
+            f"{n_par['sam']:,} (float32, TF32 off)")
+        enc = TorchCLIPTextEncoder(text, bpe)
+        align = VisionLanguageAlign.create(seed=0, device="cuda")
+        det = GroundingDINOTorch(dino, BertTokenizer(vocab))
+        predictor = SamTorch(sam_model)
+
+        # the box threshold, fixed from the seeded run's scores
+        _, scores, _ = det.predict(view, TOWER_PROMPT, box_threshold=0.0)
+        s = np.sort(scores)[::-1]
+        if not s[TOWER_BOXES - 1] > s[TOWER_BOXES]:
+            raise AssertionError(f"[towers] scores tie at {TOWER_BOXES}: "
+                                 f"{s[:TOWER_BOXES + 1]}")
+        thresh = float(s[TOWER_BOXES - 1] + s[TOWER_BOXES]) / 2
+        prov = TorchRESProvider(det, predictor, box_threshold=thresh)
+        reached = []
+        predict_boxes = predictor.predict_boxes
+
+        def counting_predict_boxes(boxes, multimask=False):
+            reached.append(len(boxes))
+            return predict_boxes(boxes, multimask)
+
+        predictor.predict_boxes = counting_predict_boxes
+        torch.cuda.synchronize()
+
+        # the main path: prompt -> set_text, a frame, the mask-free
+        # finetune through res_fn, all over HTTP
+        reset_counts()
+        app = QueryWebApp(sess, text_fn=lambda p: encode_and_align(
+            enc, align, p)[0], res_fn=prov.predict_mask, host="127.0.0.1",
+            port=0)
+        app.start()
+        base = f"http://127.0.0.1:{app.port}"
+        t0 = time.perf_counter()
+        if http_op(base, {"op": "set_text", "prompt": TOWER_PROMPT}) != {
+                "ok": True, "prompt": TOWER_PROMPT}:
+            raise AssertionError("[towers] set_text failed")
+        set_text_ms = (time.perf_counter() - t0) * 1e3
+        want = encode_and_align(enc, align, TOWER_PROMPT)[0]
+        if not torch.equal(sess.text_tokens, want):
+            raise AssertionError("[towers] set_text differs from "
+                                 "encode_and_align")
+        qs = "&".join(f"{k}={v}" for k, v in view_q.items())
+        _, frame_ms = http_get(base, f"/frame?{qs}&fmt=jpeg")
+        t0 = time.perf_counter()
+        ft = http_op(base, dict(op="finetune", max_epochs=APP_OSH_EPOCHS,
+                                **view_q))
+        finetune_s = time.perf_counter() - t0
+        if not (ft["ok"] and math.isfinite(ft["iou"]) and ft["epochs"] >= 0):
+            raise AssertionError(f"[towers] finetune: {ft}")
+        if reached != [TOWER_BOXES]:
+            raise AssertionError(f"[towers] boxes that reached SAM: "
+                                 f"{reached}, designed {TOWER_BOXES}")
+        _, osh_ms = http_get(base, f"/frame?{qs}&fmt=jpeg")
+        app.stop()
+        app = None
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if min(launches[k] for k in ("gather", "blend")) <= 0:
+            raise AssertionError(f"[towers] no kernel launched: {launches}")
+        log(f"[towers] over HTTP: set_text {set_text_ms:.1f} ms (bit for "
+            f"bit encode_and_align's), frame {frame_ms:.1f} ms, finetune "
+            f"with no client mask {finetune_s:.2f} s (IoU {ft['iou']:.4f} in "
+            f"{ft['epochs']} epochs; {reached[0]} boxes reached SAM at box "
+            f"threshold {thresh:.6f}), the OSH frame {osh_ms:.1f} ms; "
+            f"launches {launches}")
+
+        # the mask: shape, not empty, the same on a second run
+        masks = [prov.predict_mask(view, TOWER_PROMPT) for _ in range(2)]
+        m = masks[0]
+        if m is None or m.shape != view.shape[:2] or not m.any():
+            raise AssertionError(f"[towers] mask: {m}")
+        if not np.array_equal(masks[0], masks[1]):
+            raise AssertionError("[towers] two runs gave other masks")
+        if reached != [TOWER_BOXES] * 3:
+            raise AssertionError(f"[towers] boxes: {reached}")
+
+        # timings at full width (host clock around synchronised calls)
+        def wall_ms(fn, n=3):
+            out, times = None, []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return out, float(np.median(times))
+
+        _, prompt_ms = wall_ms(lambda: encode_and_align(enc, align,
+                                                        TOWER_PROMPT))
+        _, tok_ms = wall_ms(lambda: enc.tokenizer([TOWER_PROMPT]))
+        (boxes, kept, _), dino_ms = wall_ms(
+            lambda: det.predict(view, TOWER_PROMPT, thresh))
+        seen = []
+        core = deform_attn.ms_deform_attn_core
+
+        def capture(*a):
+            seen.append(a)
+            return core(*a)
+
+        deform_attn.ms_deform_attn_core = capture
+        try:
+            det.predict(view, TOWER_PROMPT, thresh)
+        finally:
+            deform_attn.ms_deform_attn_core = core
+        v, shapes, loc, aw = seen[0]
+        with torch.inference_mode():
+            core_ms = median_ms(lambda: core(v, shapes, loc, aw))
+        _, set_image_ms = wall_ms(lambda: predictor.set_image(view))
+        h, w = view.shape[:2]
+        b = boxes * np.asarray([w, h, w, h], np.float32)
+        xyxy = np.concatenate([b[:, :2] - b[:, 2:] / 2,
+                               b[:, :2] + b[:, 2:] / 2], 1)
+        _, decode_ms = wall_ms(lambda: predict_boxes(xyxy))
+        _, res_ms = wall_ms(lambda: prov.predict_mask(view, TOWER_PROMPT))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[towers] {smi}: prompt {prompt_ms:.2f} ms (tokens "
+            f"{tok_ms:.3f} ms, bigE tower + aligner), GroundingDINO "
+            f"{dino_ms:.1f} ms at {GDINO_SWINT.img_size}x"
+            f"{GDINO_SWINT.img_size} with a {GDINO_SWINT.text_pad}-token "
+            f"caption and {GDINO_SWINT.num_queries} queries, "
+            f"ms_deform_attn_core {core_ms:.3f} ms (encoder layer 0: "
+            f"{loc.shape[1]} queries, levels {list(shapes)}), SAM set_image "
+            f"{set_image_ms:.1f} ms, SAM decode {decode_ms:.1f} ms for "
+            f"{len(xyxy)} boxes, res_fn {res_ms:.1f} ms, mask "
+            f"{int(m.sum())} of {m.size} pixels; peak {peak:.2f} GiB; "
+            f"phase {time.perf_counter() - t_phase:.1f} s")
+        profile(lambda: encode_and_align(enc, align, TOWER_PROMPT),
+                "prompt (bigE tower + aligner)")
+        profile(lambda: prov.predict_mask(view, TOWER_PROMPT), "res_fn")
+        return launches
+    finally:
+        if app is not None:
+            app.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2804,7 +3152,12 @@ def main() -> int:
     for k, n in export_launches.items():
         launches[k] = launches.get(k, 0) + n
 
-    # ---- 14. kernels line, result ----
+    # ---- 14. the frozen towers behind the app's text and OSH paths ----
+    torch.cuda.empty_cache()
+    for k, n in towers_phase().items():
+        launches[k] = launches.get(k, 0) + n
+
+    # ---- 15. kernels line, result ----
     kernels = [
         dict(name="expand_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",

@@ -5,6 +5,13 @@ Plain functions that take numpy arrays (a JAX object's leaves after
 into an object of the port (an optax Adam state into a torch Adam).
 They import nothing of the JAX package, so the port runs where JAX is
 absent.
+
+The frozen towers take flat params dicts keyed by the official
+checkpoints' names, which are also the JAX package's keys: the JAX
+``init_*_params``, a ``load_*_params`` of either package, or
+``convert_openclip_text_state``'s output load through
+`load_flat_params`, which holds the keys to the module's state_dict
+exactly.
 """
 
 from __future__ import annotations
@@ -16,8 +23,13 @@ import torch
 
 from goi_tpu_torch.core.camera import Camera
 from goi_tpu_torch.core.scene import GaussianScene
+from torch import nn
+
 from goi_tpu_torch.query.align import VisionLanguageAlign
+from goi_tpu_torch.query.clip_text import CLIPTextConfig, CLIPTextTransformer
+from goi_tpu_torch.query.grounding import GroundingConfig, GroundingDINO
 from goi_tpu_torch.query.osh import OSHState
+from goi_tpu_torch.query.sam import SAM, SAMConfig
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
 
 
@@ -94,3 +106,34 @@ def adam_state_from_numpy(opt: torch.optim.Adam,
             "step": torch.tensor(float(st["count"]), dtype=torch.float32),
             "exp_avg": _t(np.asarray(st["mu"], np.float32), p.device),
             "exp_avg_sq": _t(np.asarray(st["nu"], np.float32), p.device)}
+
+
+def load_flat_params(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load a flat {state_dict key: array} dict into `module`: each array
+    becomes a float32 tensor on the module's device, then
+    ``load_state_dict(strict=True)`` (a missing or extra key raises)."""
+    device = next(module.parameters()).device
+    module.load_state_dict(
+        {k: _t(np.asarray(v, np.float32), device) for k, v in params.items()},
+        strict=True)
+    return module
+
+
+def clip_text_from_numpy(params: Mapping, cfg: CLIPTextConfig,
+                         device="cuda") -> CLIPTextTransformer:
+    """The text tower from `convert_openclip_text_state`'s (or the JAX
+    init's) params."""
+    return load_flat_params(CLIPTextTransformer(cfg, device=device),
+                            params).eval()
+
+
+def grounding_from_numpy(params: Mapping, cfg: GroundingConfig,
+                         device="cuda") -> GroundingDINO:
+    """GroundingDINO (Swin, BERT and the transformer in one dict, under
+    the checkpoint's backbone.0. / bert. / transformer. names)."""
+    return load_flat_params(GroundingDINO(cfg, device=device),
+                            params).eval()
+
+
+def sam_from_numpy(params: Mapping, cfg: SAMConfig, device="cuda") -> SAM:
+    return load_flat_params(SAM(cfg, device=device), params).eval()

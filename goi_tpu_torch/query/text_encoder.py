@@ -3,13 +3,17 @@
 Counterpart of goi_tpu/query/text_encoder.py. The reference embeds
 prompts with a frozen EVA02-CLIP-bigE-14-plus text tower plus the
 learned aligner (ref:ext/clip_wrapper_eva02.py:8-148,
-gui/main.py:105-111). Those weights are multi-GB artifacts, so text
-embeddings are produced offline and served from a store, and the aligner
-(query/align.py) maps them to the image space on its device.
+gui/main.py:105-111); the aligner (query/align.py) maps an embedding to
+the image space on its device.
 
-  PrecomputedTextEncoder  prompt -> embedding from an .npz file
-  TorchEVA02TextEncoder   the live tower, where the user supplies the
-                          checkpoint and the eva02 CLIP library
+  PrecomputedTextEncoder  prompt -> embedding from an .npz file made
+                          offline
+  TorchCLIPTextEncoder    the live tower in this package
+                          (query/clip_text.py) with pluggable converted
+                          weights: any prompt, no offline step
+  TorchEVA02TextEncoder   the reference's own tower, where the user
+                          supplies the checkpoint and the eva02 CLIP
+                          library
 """
 
 from __future__ import annotations
@@ -19,6 +23,11 @@ from typing import Dict, Protocol
 
 import numpy as np
 import torch
+
+from goi_tpu_torch.query.clip_text import TorchCLIPTextEncoder
+
+__all__ = ["TextEncoder", "PrecomputedTextEncoder", "TorchCLIPTextEncoder",
+           "TorchEVA02TextEncoder", "encode_and_align"]
 
 
 class TextEncoder(Protocol):

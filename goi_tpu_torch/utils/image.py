@@ -184,3 +184,37 @@ def save_image(img, path: str) -> None:
     if arr.shape[-1] == 1:
         arr = arr[..., 0]
     Image.fromarray(np.clip(arr * 255, 0, 255).astype(np.uint8)).save(path)
+
+
+def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of jax.image.resize's "linear"
+    method along one axis: a triangle kernel at half-pixel centres,
+    widened by the scale when it downsamples (antialias), each column
+    normalized, and zero for a sample outside the input. Computed in
+    float64, so every device gets the same weights."""
+    inv_scale = n_in / n_out
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    dist = np.abs(sample[None, :] - np.arange(n_in)[:, None])
+    w = np.maximum(1.0 - dist / max(inv_scale, 1.0), 0.0)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.as_tensor(np.where(inside[None, :], w, 0.0)
+                           .astype(np.float32), device=device)
+
+
+def resize_linear(x: torch.Tensor, shape) -> torch.Tensor:
+    """jax.image.resize(x, shape, "bilinear") (antialias on, its default):
+    each axis whose size changes is contracted with its weight matrix.
+    F.interpolate differs: it does not antialias a downscale, and its
+    edge weights differ."""
+    if len(shape) != x.dim():
+        raise ValueError(f"shape {tuple(shape)} for a {x.dim()}-d input")
+    y = x.float()
+    for d, n in enumerate(shape):
+        if y.shape[d] == n:
+            continue
+        w = _linear_weights(y.shape[d], int(n), y.device)
+        y = torch.movedim(torch.movedim(y, d, -1) @ w, -1, d)
+    return y

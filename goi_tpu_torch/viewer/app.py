@@ -24,11 +24,14 @@ the next one replaces it.
 
 Hooks (both optional):
   text_fn(prompt: str) -> (C,) aligned text embedding, e.g.
-      `lambda p: encode_and_align(encoder, align, p)[0]`
+      `lambda p: encode_and_align(encoder, align, p)[0]` with the live
+      `TorchCLIPTextEncoder` or a precomputed store
       (query/text_encoder.py).
-  res_fn(image (H, W, 3) float [0,1], prompt: str) -> (H, W) bool|None.
+  res_fn(image (H, W, 3) float [0,1], prompt: str) -> (H, W) bool|None,
+      e.g. `TorchRESProvider(GroundingDINOTorch(...), SamTorch(...))
+      .predict_mask` (query/res.py).
 
-    app = QueryWebApp(session, text_fn=fn)
+    app = QueryWebApp(session, text_fn=fn, res_fn=prov.predict_mask)
     app.start()        # daemon thread; open http://host:port
 """
 

@@ -71,6 +71,11 @@ APP_SLICE_MODULES = (
 EXPORT_SLICE_MODULES = (
     "export/__init__.py", "export/marching.py", "export/mesh.py",
     "export/texture.py")
+# modules of the frozen-tower slice
+TOWER_SLICE_MODULES = (
+    "query/_nn.py", "query/clip_text.py", "query/bert.py", "query/swin.py",
+    "query/deform_attn.py", "query/grounding.py", "query/sam.py",
+    "query/res.py")
 _GOI_TPU_NAME = re.compile(r"goi_tpu(?!_torch)\b")
 
 
@@ -92,7 +97,8 @@ def _strings_naming_goi_tpu(path: Path):
 def test_slice_modules_are_guarded_and_read_no_goi_tpu_file():
     port = ROOT / "goi_tpu_torch"
     assert {port / m for m in SLICE_MODULES + RGB_SLICE_MODULES
-            + APP_SLICE_MODULES + EXPORT_SLICE_MODULES} <= set(FILES)
+            + APP_SLICE_MODULES + EXPORT_SLICE_MODULES
+            + TOWER_SLICE_MODULES} <= set(FILES)
     bad = [f"{p.relative_to(ROOT)}:{line} names {text!r}"
            for p in FILES if p.is_relative_to(port)
            for line, text in _strings_naming_goi_tpu(p)]
@@ -273,6 +279,42 @@ def test_export_modules_need_neither_imageio_nor_sklearn():
            for p in files for line, mod in _imports(p)
            if mod.split(".")[0] in ("imageio", "sklearn")]
     assert not bad, "\n".join(bad)
+
+
+def test_tower_modules_need_no_regex_and_default_to_the_card():
+    """The card machine has no `regex`: the towers import it only inside
+    a try whose ImportError falls back to the ASCII pattern. Every public
+    entry point of the slice that takes a device defaults to "cuda" (the
+    building blocks inside the towers take their tower's)."""
+    import inspect
+
+    from goi_tpu_torch import interop
+    from goi_tpu_torch.query import (_nn, bert, clip_text, deform_attn,
+                                     grounding, res, sam, swin)
+    for m in TOWER_SLICE_MODULES:
+        tree = ast.parse((ROOT / "goi_tpu_torch" / m).read_text())
+        guarded = {id(n) for t in ast.walk(tree) if isinstance(t, ast.Try)
+                   for b in t.body for n in ast.walk(b)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import) and any(
+                    a.name == "regex" for a in node.names):
+                assert id(node) in guarded, f"{m}:{node.lineno}"
+    checked = []
+    for mod in (_nn, bert, clip_text, deform_attn, grounding, res, sam,
+                swin, interop):
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) \
+                    != mod.__name__ or not callable(obj):
+                continue
+            dev = inspect.signature(obj).parameters.get("device")
+            if dev is not None and dev.default is not inspect.Parameter.empty:
+                assert dev.default == "cuda", f"{mod.__name__}.{name}"
+                checked.append(name)
+    assert {"CLIPTextTransformer", "BertModel", "SwinBackbone",
+            "MSDeformAttn", "GroundingDINO", "SAM", "clip_text_from_numpy",
+            "grounding_from_numpy", "sam_from_numpy"} <= set(checked)
+    enc = inspect.signature(clip_text.TorchCLIPTextEncoder.from_npz)
+    assert enc.parameters["device"].default == "cuda"
 
 
 def _atomic_float_sums(path: Path):
