@@ -121,7 +121,19 @@ exits non-zero without the final result line:
    view's shape, is not empty and is the same on a second run); the
    prompt, GroundingDINO, one encoder layer's ms_deform_attn_core, SAM
    set_image and decode, and res_fn times and the peak memory;
-15. a JSON line with every ported kernel's launches (those of the CLIs',
+15. [edit] SDS guidance and the query app's edit session at full width:
+   the SD-1.5-inpainting UNet + VAE (943M parameters, seeded, their
+   state_dict the checkpoint's manifest), the UNet at reduced depth and
+   the VAE on the card against the CPU within TOL_SD; QueryWebApp with an
+   EditSession(InpaintSDS(TorchDiffusionBackend)) on the [app] scene:
+   edit_precompute over EDIT_NEAR + EDIT_AWAY orbit views at 1296x968
+   (exactly the EDIT_NEAR near views relative, grad_mask exactly the
+   designed groups), edit_train for EDIT_EPOCHS epochs at batch 2 (every
+   loss finite, only target Gaussians changed, num_valid kept, the app's
+   frame showing the edit, the gather, blend, blend_bwd and prefix
+   kernels launched), the UNet, VAE encode + backward, SDS step and edit
+   step times, the peak memory and one profiled step;
+16. a JSON line with every ported kernel's launches (those of the CLIs',
    the demo's and the viewer's processes included), error, times and
    bound; then the final JSON line.
 """
@@ -268,6 +280,27 @@ TOWER_BOXES = 4
 TOWER_CHECK_DEPTH = 2, 2, 1
 TOL_TOWER = (1e-3, 1e-4)
 TOWER_LOGIT_SCALE = 1.0 / 16
+# [edit]: the SDS edit session (goi_tpu_torch/app/edit.py) at full width:
+# the SD-1.5-inpainting UNet + VAE at the SDConfig() defaults (943M
+# parameters, float32, TF32 off) with seeded weights, behind QueryWebApp
+# on the [app] scene (app_scene: a 100k ball and 50k far Gaussians of one
+# code). The edit cameras are EDIT_NEAR orbit views at 1296x968 around the
+# group view, where the ball fills most of the frame, and EDIT_AWAY views
+# from the far side at radius EDIT_AWAY_R, where it is a few percent of
+# the frame behind the central cloud: exactly EDIT_NEAR views pass
+# precompute's min_relative_ratio of 0.1. EDIT_EPOCHS epochs at batch 2,
+# then EDIT_TIMED more steps for the step time. Card against CPU at
+# reduced depth (EDIT_CHECK_UNET: the UNet's first two blocks at their
+# full widths 320 and 640, 768 cross-attention, 8 heads, on 64x64
+# latents; the whole VAE on EDIT_CHECK_IMG^2 images) within TOL_SD (rtol,
+# atol of the peak; float32 on both, convolutions and GEMMs summed in
+# another order)
+EDIT_NEAR, EDIT_AWAY, EDIT_AWAY_R = 6, 4, 6.0
+EDIT_EPOCHS = 3
+EDIT_TIMED = 6
+EDIT_CHECK_UNET = dict(block_out_channels=(320, 640))
+EDIT_CHECK_IMG = 128
+TOL_SD = (1e-3, 1e-4)
 
 
 def log(*a):
@@ -1859,6 +1892,45 @@ def app_scene(decoder):
     return scene, code, target.cpu().numpy(), near_mask.cpu().numpy()
 
 
+def app_prompt(lut, code, root):
+    """The app scene's prompt: a 1024-d embedding the seeded aligner maps
+    onto LUT row `code`'s direction (its pseudo-inverse), in a .npz store
+    under `root`, and the similarity threshold halfway between the code's
+    similarity and the next code's, so that the designed groups are the
+    retrieval. Returns (encoder, aligner, aligned tokens, threshold, a
+    note for the log)."""
+    import os
+    import torch
+    from goi_tpu_torch.query.align import VisionLanguageAlign
+    from goi_tpu_torch.query.similarity import ape_similarity
+    from goi_tpu_torch.query.text_encoder import (PrecomputedTextEncoder,
+                                                  encode_and_align)
+    align = VisionLanguageAlign.create(seed=0, device="cuda")
+    n_code = (lut[code] / torch.linalg.norm(lut[code])).cpu().numpy()
+    emb = np.linalg.pinv(align.w_text.cpu().numpy().astype(np.float64)
+                         ) @ n_code.astype(np.float64)
+    store = os.path.join(root, "prompts.npz")
+    np.savez(store, target=emb.astype(np.float32))
+    enc = PrecomputedTextEncoder(store)
+    tokens = encode_and_align(enc, align, "target")[0]
+    cos = float(tokens @ torch.as_tensor(n_code, device="cuda")
+                / torch.linalg.norm(tokens))
+    if cos < 0.999:
+        raise AssertionError(f"[app] aligned prompt off its code: {cos}")
+    normed = lut / torch.linalg.norm(lut, dim=-1, keepdim=True)
+    sims = ape_similarity(normed, tokens).cpu().numpy().astype(np.float64)
+    others = np.delete(sims, code)
+    if not sims[code] > others.max():
+        raise AssertionError("[app] the prompt's code is not the most "
+                             "similar")
+    thresh = float((sims[code] + others.max()) / 2)
+    note = (f"prompt through the aligner (cos {cos:.6f} to the code's LUT "
+            f"row, |tokens| {float(torch.linalg.norm(tokens)):.4f}); "
+            f"sim_thresh {thresh:.6f} between {sims[code]:.6f} and "
+            f"{others.max():.6f}")
+    return enc, align, tokens, thresh, note
+
+
 def shared_borders(points, eps, min_samples, labels) -> int:
     """Non-core points within eps of core points of two clusters (plain
     numpy and scipy, the float64 test of app/dbscan.py)."""
@@ -1988,10 +2060,7 @@ def app_phase():
     from goi_tpu_torch.data.dataset import build_cameras
     from goi_tpu_torch.data.readers import load_scene_info
     from goi_tpu_torch.examples.rehearsal import write_colmap
-    from goi_tpu_torch.query.align import VisionLanguageAlign
-    from goi_tpu_torch.query.similarity import ape_similarity
-    from goi_tpu_torch.query.text_encoder import (PrecomputedTextEncoder,
-                                                  encode_and_align)
+    from goi_tpu_torch.query.text_encoder import encode_and_align
     from goi_tpu_torch.raster.preprocess import preprocess
     from goi_tpu_torch.raster.render import (DEBUG_DUMP, RasterConfig,
                                              render, render_batch,
@@ -2012,30 +2081,7 @@ def app_phase():
             0, 1, (TAB_LEN, APE_DIM)).astype(np.float32), device="cuda")
         scene, code, target, near_mask = app_scene(decoder)
 
-        # the prompt: a 1024-d embedding the seeded aligner maps onto LUT
-        # row `code`'s direction (its pseudo-inverse), in a .npz store
-        align = VisionLanguageAlign.create(seed=0, device="cuda")
-        n_code = (lut[code] / torch.linalg.norm(lut[code])).cpu().numpy()
-        emb = np.linalg.pinv(align.w_text.cpu().numpy().astype(np.float64)
-                             ) @ n_code.astype(np.float64)
-        store = os.path.join(root, "prompts.npz")
-        np.savez(store, target=emb.astype(np.float32))
-        enc = PrecomputedTextEncoder(store)
-        tokens = encode_and_align(enc, align, "target")[0]
-        cos = float(tokens @ torch.as_tensor(n_code, device="cuda")
-                    / torch.linalg.norm(tokens))
-        if cos < 0.999:
-            raise AssertionError(f"[app] aligned prompt off its code: {cos}")
-        # the threshold halfway between the code's similarity and the
-        # next code's, so that the groups are the retrieval
-        normed = lut / torch.linalg.norm(lut, dim=-1, keepdim=True)
-        sims = ape_similarity(normed, tokens).cpu().numpy().astype(
-            np.float64)
-        others = np.delete(sims, code)
-        if not sims[code] > others.max():
-            raise AssertionError("[app] the prompt's code is not the most "
-                                 "similar")
-        thresh = float((sims[code] + others.max()) / 2)
+        enc, align, tokens, thresh, note = app_prompt(lut, code, root)
 
         ngp = NGPOrbitCamera(WIDTH, HEIGHT, r=3.5, fovy=50.0)
         views = []
@@ -2056,11 +2102,8 @@ def app_phase():
                             white_background=False, device="cuda")
         log(f"[app] scene: {N_GAUSS} Gaussians, {APP_NEAR} in a ball of "
             f"radius {APP_BALL} before the group view and {APP_FAR} above "
-            f"every view carry code {code}; prompt through the aligner "
-            f"(cos {cos:.6f} to the code's LUT row, |tokens| "
-            f"{float(torch.linalg.norm(tokens)):.4f}); sim_thresh "
-            f"{thresh:.6f} between {sims[code]:.6f} and {others.max():.6f};"
-            f" budget {cfg.max_instances}")
+            f"every view carry code {code}; {note}; budget "
+            f"{cfg.max_instances}")
         torch.cuda.synchronize()
 
         reset_counts()
@@ -2968,6 +3011,317 @@ def towers_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
+def sd_card_vs_cpu(gen):
+    """The UNet at reduced depth and the VAE at full width on the card and
+    on the CPU through the same modules and weights; returns the max
+    |diff| of each output."""
+    import dataclasses
+    import torch
+    from goi_tpu_torch.guidance.sd_torch import (AutoencoderKL, SDConfig,
+                                                 UNet2DCondition, init_sd_)
+    full = SDConfig()
+    cfg = dataclasses.replace(full, **EDIT_CHECK_UNET)
+    errs = {}
+
+    def check(name, a, b):
+        ok, e = close_to_peak(a.cpu(), b, *TOL_SD)
+        if not ok or not float(b.abs().max()) > 0:
+            raise AssertionError(f"[edit] {name}: card vs CPU {e}")
+        errs[name] = e
+
+    with torch.no_grad():
+        unet = init_sd_(UNet2DCondition(cfg, device="cuda"), gen)
+        cpu = cpu_copy(lambda d: UNet2DCondition(cfg, d), unet)
+        x = torch.randn(2, cfg.in_channels, 64, 64, generator=gen,
+                        device="cuda")
+        t = torch.tensor([500, 21], device="cuda")
+        ctx = torch.randn(2, 77, cfg.cross_attention_dim, generator=gen,
+                          device="cuda")
+        check("unet eps", unet(x, t, ctx), cpu(x.cpu(), t.cpu(), ctx.cpu()))
+        del unet, cpu
+        vae = init_sd_(AutoencoderKL(full, device="cuda"), gen)
+        cpu = cpu_copy(lambda d: AutoencoderKL(full, d), vae)
+        r = EDIT_CHECK_IMG
+        img = torch.rand(2, 3, r, r, generator=gen, device="cuda") * 2 - 1
+        check("vae encode", vae.encode(img), cpu.encode(img.cpu()))
+        lat = torch.randn(2, full.latent_channels, r // 8, r // 8,
+                          generator=gen, device="cuda")
+        check("vae decode", vae.decode(lat), cpu.decode(lat.cpu()))
+    log(f"[edit] card vs CPU: the UNet's blocks {cfg.block_out_channels} "
+        f"(cross-attention {cfg.cross_attention_dim}, "
+        f"{cfg.attention_head_dim} heads) on 64x64 latents, the VAE at full "
+        f"width on {r}x{r}; max |diff| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (rtol {TOL_SD[0]}, atol {TOL_SD[1]} of the peak)")
+    return errs
+
+
+def edit_phase():
+    """[edit]: the SDS edit session at full width behind the query app:
+    the SD-1.5-inpainting UNet + VAE with seeded weights, the [app]
+    scene's prompt over HTTP, edit_precompute over the edit cameras (the
+    relative cameras exactly the EDIT_NEAR near views, grad_mask exactly
+    the designed groups), edit_train for EDIT_EPOCHS epochs at batch 2
+    (every loss finite, only target Gaussians changed, num_valid kept, the
+    app rendering the edited scene), then the UNet, VAE, SDS and step
+    times and one profiled step. Returns the kernel launches of the path
+    (precompute and train)."""
+    import os
+    import shutil
+    import torch
+    from goi_tpu_torch.app.edit import EditSession
+    from goi_tpu_torch.app.orbit_ngp import NGPOrbitCamera
+    from goi_tpu_torch.app.session import QuerySession
+    from goi_tpu_torch.guidance import InpaintSDS
+    from goi_tpu_torch.guidance.sd_torch import (AutoencoderKL, SDConfig,
+                                                 TorchDiffusionBackend,
+                                                 UNet2DCondition, init_sd_)
+    from goi_tpu_torch.query.text_encoder import encode_and_align
+    from goi_tpu_torch.raster.render import RasterConfig, render, \
+        suggest_budgets
+    from goi_tpu_torch.semantic.codebook import SemanticDecoder
+    from goi_tpu_torch.viewer.app import QueryWebApp
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    root = tempfile.mkdtemp(prefix="goi_edit_")
+    app = None
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        sd_card_vs_cpu(gen)
+
+        # the model at full width, seeded on the card
+        full = SDConfig()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            unet = init_sd_(UNet2DCondition(full, device="cuda"), gen)
+            vae = init_sd_(AutoencoderKL(full, device="cuda"), gen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        shapes = {"unet." + k: list(v.shape)
+                  for k, v in unet.state_dict().items()}
+        shapes.update({"vae." + k: list(v.shape)
+                       for k, v in vae.state_dict().items()})
+        golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "golden", "sd_golden.json")
+        with open(golden) as f:
+            if shapes != json.load(f)["manifest_full"]:
+                raise AssertionError("[edit] the modules' state_dict is not "
+                                     "the checkpoint's manifest")
+        n_unet = sum(p.numel() for p in unet.parameters())
+        n_vae = sum(p.numel() for p in vae.parameters())
+        backend = TorchDiffusionBackend(unet, vae, full)
+        pos = torch.randn(77, full.cross_attention_dim, generator=gen,
+                          device="cuda")
+        neg = torch.randn(77, full.cross_attention_dim, generator=gen,
+                          device="cuda")
+        sds = InpaintSDS(backend, pos, neg)
+        log(f"[edit] SD-1.5-inpainting at full width built on the card in "
+            f"{build_s:.1f} s: UNet {n_unet:,} + VAE {n_vae:,} = "
+            f"{n_unet + n_vae:,} parameters (float32, TF32 off), state_dict "
+            f"keys and shapes equal to manifest_full")
+
+        # the app scene, its prompt, the edit cameras
+        decoder = SemanticDecoder.create(torch.Generator().manual_seed(0),
+                                         dim_in=SEM_DIM, dim_out=TAB_LEN,
+                                         device="cuda")
+        lut = torch.as_tensor(np.random.default_rng(2).normal(
+            0, 1, (TAB_LEN, APE_DIM)).astype(np.float32), device="cuda")
+        scene, code, target, _ = app_scene(decoder)
+        enc, align, tokens, thresh, note = app_prompt(lut, code, root)
+        near_ngp = NGPOrbitCamera(WIDTH, HEIGHT, r=3.5, fovy=50.0)
+        away_ngp = NGPOrbitCamera(WIDTH, HEIGHT, r=EDIT_AWAY_R, fovy=50.0)
+        near, away = [], []
+        for i in range(EDIT_NEAR):
+            near_ngp.orbit_to(APP_VIEW["elev"] + 4.0 * (i % 2),
+                              APP_VIEW["azim"] + 6.0 * (i - EDIT_NEAR // 2))
+            near.append(near_ngp.to_camera(device="cuda"))
+        for i in range(EDIT_AWAY):
+            away_ngp.orbit_to(0.0, APP_VIEW["azim"] + 180.0
+                              + 12.0 * (i - EDIT_AWAY // 2))
+            away.append(away_ngp.to_camera(device="cuda"))
+        half = EDIT_NEAR // 2
+        cams = near[:half] + away + near[half:]
+        cfg = RasterConfig(max_instances=suggest_budgets(scene, cams,
+                                                         margin=1.5)[0])
+        sess = QuerySession(scene, decoder, lut, cfg, sim_thresh=thresh,
+                            white_background=False, device="cuda")
+        sess.set_text(tokens)
+
+        def target_pixels(cam):
+            with torch.no_grad():
+                out = render(scene, cam, torch.ones(3, device="cuda"), cfg)
+                return int((sess.compute_similarity(out["semantics"].reshape(
+                    SEM_DIM, -1).T) > 0).sum())
+
+        n_near = [target_pixels(c) for c in near]
+        n_away = [target_pixels(c) for c in away]
+        if min(n_near) < 0.1 * max(n_near) or max(n_away) >= 0.1 * max(
+                n_near):
+            raise AssertionError(f"[edit] target pixels: near {n_near}, "
+                                 f"far side {n_away}")
+        log(f"[edit] scene: {N_GAUSS} Gaussians, {APP_NEAR} in the ball and "
+            f"{APP_FAR} far above carry code {code}; {note}; budget "
+            f"{cfg.max_instances}; target pixels of the {EDIT_NEAR} near "
+            f"views {n_near}, of the {EDIT_AWAY} far-side views {n_away} "
+            f"(min_relative_ratio 0.1 of {max(n_near)})")
+        edit = EditSession(scene, sds, cfg, batch_size=2)
+        torch.cuda.synchronize()
+
+        app = QueryWebApp(sess, text_fn=lambda p: encode_and_align(
+            enc, align, p)[0], edit=edit, edit_cameras=cams,
+            host="127.0.0.1", port=0)
+        app.start()
+        base = f"http://127.0.0.1:{app.port}"
+        if http_op(base, {"op": "set_text", "prompt": "target"}) != {
+                "ok": True, "prompt": "target"}:
+            raise AssertionError("[edit] set_text failed")
+        view = (f"/frame?elev={APP_VIEW['elev']}&azim={APP_VIEW['azim']}"
+                f"&radius=3.5&w={WIDTH}&h={HEIGHT}&fmt=png")
+        frame_before, _ = http_get(base, view)
+        before = {k: v.clone() for k, v in sess.scene.params().items()}
+        torch.cuda.synchronize()
+
+        # the main path: edit_precompute and edit_train over HTTP
+        reset_counts()
+        t0 = time.perf_counter()
+        got = http_op(base, {"op": "edit_precompute"})
+        precompute_s = time.perf_counter() - t0
+        if got != {"ok": True, "relative_cameras": EDIT_NEAR}:
+            raise AssertionError(f"[edit] precompute: {got}, designed "
+                                 f"{EDIT_NEAR}")
+        state = json.loads(http_get(base, "/state")[0])
+        if state["edit"] != {"relative_cameras": EDIT_NEAR} or not all(
+                torch.equal(rc.camera.world_view, c.world_view)
+                for rc, c in zip(edit.relative_cameras, near)):
+            raise AssertionError(f"[edit] relative cameras: {state}")
+        tgt = torch.as_tensor(target, device="cuda")
+        if not torch.equal(edit.grad_mask > 0, tgt):
+            raise AssertionError("[edit] grad_mask is not the designed "
+                                 "groups")
+        step_ms, losses = [], []
+        step = edit.step
+
+        def timed_step(*a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = step(*a, **k)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss))
+            return loss
+
+        edit.step = timed_step
+        t0 = time.perf_counter()
+        try:
+            got = http_op(base, {"op": "edit_train", "seed": 0,
+                                 "epochs": EDIT_EPOCHS,
+                                 "log_every": EDIT_EPOCHS})
+        finally:
+            del edit.step
+        train_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_counts()
+        n_steps = EDIT_EPOCHS * (EDIT_NEAR // 2)
+        if got != {"ok": True, "num_valid": N_GAUSS}:
+            raise AssertionError(f"[edit] edit_train: {got}")
+        if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"[edit] losses {losses}")
+        if min(launches[k] for k in ("gather", "blend", "blend_bwd",
+                                     "prefix")) <= 0:
+            raise AssertionError(f"[edit] a kernel of the path was not "
+                                 f"launched: {launches}")
+
+        # only target Gaussians changed, and the app renders the edit
+        after = sess.scene.params()
+        changed = torch.zeros(N_GAUSS, dtype=torch.bool, device="cuda")
+        per_attr = {}
+        for k, v in before.items():
+            c = (after[k] != v).reshape(N_GAUSS, -1).any(1)
+            per_attr[k] = int(c.sum())
+            changed |= c
+        if bool((changed & ~tgt).any()) or not bool((changed & tgt).any()):
+            raise AssertionError(f"[edit] changed outside the target "
+                                 f"{int((changed & ~tgt).sum())}, inside "
+                                 f"{int((changed & tgt).sum())}")
+        if not torch.equal(sess.scene.xyz, edit.scene.xyz):
+            raise AssertionError("[edit] the session does not hold the edit")
+        frame_after, _ = http_get(base, view)
+        if frame_after == frame_before:
+            raise AssertionError("[edit] the app renders the scene as "
+                                 "before the edit")
+        app.stop()
+        app = None
+        p50, p95 = np.percentile(step_ms, [50, 95])
+        log(f"[edit] over HTTP: edit_precompute {precompute_s:.2f} s "
+            f"({len(cams)} views -> {EDIT_NEAR} relative cameras, grad_mask "
+            f"the {int(tgt.sum())} designed Gaussians); edit_train "
+            f"{EDIT_EPOCHS} epochs = {n_steps} steps at batch 2 in "
+            f"{train_s:.2f} s, step p50 {p50:.1f} ms, p95 {p95:.1f} ms, "
+            f"max {max(step_ms):.1f} ms; losses "
+            + ", ".join(f"{v:.4g}" for v in losses)
+            + f"; {int(changed.sum())} Gaussians changed, all in the target "
+            f"(by attribute {per_attr}); num_valid {N_GAUSS}; the app's "
+            f"frame shows the edit; launches {launches}; {smi}")
+
+        # the layers' times at the path's shapes
+        rel = edit.relative_cameras
+        masks = torch.stack([rc.mask[None] for rc in rel[:2]]).float()
+        lat_in = torch.randn(2, full.in_channels, 64, 64, generator=gen,
+                             device="cuda")
+        t_b = torch.full((2,), 500, device="cuda")
+        with torch.no_grad():
+            unet_ms = median_ms(lambda: backend.unet_eps(
+                lat_in, t_b, pos[None].expand(2, -1, -1)), iters=5)
+        x = (torch.rand(2, 3, 512, 512, generator=gen, device="cuda") * 2
+             - 1).requires_grad_()
+        gz = torch.randn(2, full.latent_channels, 64, 64, generator=gen,
+                         device="cuda")
+
+        def encode_fb():
+            x.grad = None
+            backend.encode_images(x).backward(gz)
+
+        vae_ms = median_ms(encode_fb, iters=5)
+        imgs = torch.rand(2, 3, HEIGHT, WIDTH, generator=gen,
+                          device="cuda").requires_grad_()
+
+        def sds_fb():
+            imgs.grad = None
+            sds.train_step(gen, imgs, masks, step_ratio=0.5,
+                           guidance_scale=100.0).backward()
+
+        sds_ms = median_ms(sds_fb, iters=5)
+        params = edit._leaves()
+        edit._rebind(params)
+        cams2 = [rc.camera for rc in rel[:2]]
+        timed = []
+        for i in range(EDIT_TIMED):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            edit.step(params, cams2, masks, gen, (i + 1) / EDIT_TIMED)
+            torch.cuda.synchronize()
+            timed.append((time.perf_counter() - t1) * 1e3)
+        q50, q95 = np.percentile(timed, [50, 95])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[edit] {smi}: UNet eps (batch 2, one condition, 64x64 "
+            f"latents) {unet_ms:.2f} ms; VAE encode forward + backward "
+            f"(2 x 512x512) {vae_ms:.2f} ms; InpaintSDS.train_step + "
+            f"backward to the image (2 x {WIDTH}x{HEIGHT}) {sds_ms:.2f} ms; "
+            f"edit step (render 2 views, SDS, backward, mask, Adam) "
+            f"p50 {q50:.1f} ms, p95 {q95:.1f} ms over {EDIT_TIMED} more "
+            f"steps; precompute {precompute_s:.2f} s; peak "
+            f"{peak:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s")
+        profile(lambda: edit.step(params, cams2, masks, gen, 0.5),
+                "edit step")
+        return launches
+    finally:
+        if app is not None:
+            app.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3157,7 +3511,12 @@ def main() -> int:
     for k, n in towers_phase().items():
         launches[k] = launches.get(k, 0) + n
 
-    # ---- 15. kernels line, result ----
+    # ---- 15. SDS guidance and the app's edit session ----
+    torch.cuda.empty_cache()
+    for k, n in edit_phase().items():
+        launches[k] = launches.get(k, 0) + n
+
+    # ---- 16. kernels line, result ----
     kernels = [
         dict(name="expand_gather", route="cuda",
              source="goi_tpu_torch/raster/csrc/gather.cu",

@@ -253,6 +253,17 @@ class QuerySession:
         self.motion = np.zeros_like(self.motion)
         self.gs_index = None
 
+    def adopt_scene(self, scene: GaussianScene) -> None:
+        """Take `scene`, an edit of the session's (the same Gaussians), as
+        the session's: the moves since the last retrieve or reset stay
+        undoable, the edit kept (reset subtracts the motion, as the JAX
+        package's does)."""
+        scene = scene.to(self.device)
+        if self._rest_xyz is not None:
+            self._rest_xyz = scene.xyz - torch.as_tensor(
+                self.motion, device=self.device)
+        self.scene = scene
+
     # ---- instance grouping (ref:gui/main.py:1595-1671) ----
     def group_points(self, cam, res_mask: np.ndarray, eps: float = 0.35,
                      min_samples: int = 600,

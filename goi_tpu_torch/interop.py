@@ -6,10 +6,11 @@ into an object of the port (an optax Adam state into a torch Adam).
 They import nothing of the JAX package, so the port runs where JAX is
 absent.
 
-The frozen towers take flat params dicts keyed by the official
-checkpoints' names, which are also the JAX package's keys: the JAX
-``init_*_params``, a ``load_*_params`` of either package, or
-``convert_openclip_text_state``'s output load through
+The frozen towers and the Stable-Diffusion backend take flat params
+dicts keyed by the official checkpoints' names, which are also the JAX
+package's keys: the JAX ``init_*_params``, a ``load_*_params`` of either
+package, ``convert_openclip_text_state``'s or
+``convert_diffusers_state``'s output load through
 `load_flat_params`, which holds the keys to the module's state_dict
 exactly.
 """
@@ -25,6 +26,9 @@ from goi_tpu_torch.core.camera import Camera
 from goi_tpu_torch.core.scene import GaussianScene
 from torch import nn
 
+from goi_tpu_torch.guidance.sd_torch import (AutoencoderKL, SDConfig,
+                                             TorchDiffusionBackend,
+                                             UNet2DCondition)
 from goi_tpu_torch.query.align import VisionLanguageAlign
 from goi_tpu_torch.query.clip_text import CLIPTextConfig, CLIPTextTransformer
 from goi_tpu_torch.query.grounding import GroundingConfig, GroundingDINO
@@ -137,3 +141,29 @@ def grounding_from_numpy(params: Mapping, cfg: GroundingConfig,
 
 def sam_from_numpy(params: Mapping, cfg: SAMConfig, device="cuda") -> SAM:
     return load_flat_params(SAM(cfg, device=device), params).eval()
+
+
+# the VAE's top-level names; every other key of the SD dict is the UNet's
+_VAE_KEYS = ("encoder.", "decoder.", "quant_conv.", "post_quant_conv.")
+
+
+def sd_from_numpy(params: Mapping, cfg: SDConfig,
+                  device="cuda") -> TorchDiffusionBackend:
+    """The SD backend from one flat {diffusers key: array} dict holding the
+    UNet's and the VAE's keys together (the JAX ``init_sd_params``'s or
+    ``convert_diffusers_state``'s output). A Transformer2D proj_in /
+    proj_out weight in the linear layout, (c, c), becomes the checkpoint's
+    1x1 conv, (c, c, 1, 1): the same map."""
+    unet, vae = {}, {}
+    for k, v in params.items():
+        v = np.asarray(v, np.float32)
+        if k.startswith(_VAE_KEYS):
+            vae[k] = v
+        else:
+            if k.endswith((".proj_in.weight", ".proj_out.weight")) \
+                    and v.ndim == 2:
+                v = v[:, :, None, None]
+            unet[k] = v
+    return TorchDiffusionBackend(
+        load_flat_params(UNet2DCondition(cfg, device=device), unet),
+        load_flat_params(AutoencoderKL(cfg, device=device), vae), cfg)

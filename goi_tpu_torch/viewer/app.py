@@ -16,13 +16,17 @@ endpoint, with a self-contained browser client at `/`:
   grouping         DBSCAN group_points (ref:gui/main.py:1595-1671)
   video            anchor-pose slerp path -> mp4 (ref:gui/main.py:
                    1766-1821)
+  SDS edit         edit_precompute: relative cameras of the current query
+                   among `edit_cameras` and the frozen-Gaussian mask;
+                   edit_train: SDS epochs, after which the app renders
+                   the edited scene (ref:gui/main_edit.py:312-720)
 
-The SDS edit operations (edit_precompute, edit_train) answer "no edit
-session configured": the edit session is not ported. Frames render on
-the session's device, and the page revokes each frame's object URL when
-the next one replaces it.
+The edit operations answer "no edit session configured" when the app has
+no `edit` (an `app/edit.py` EditSession). Frames render on the session's
+device, and the page revokes each frame's object URL when the next one
+replaces it.
 
-Hooks (both optional):
+Hooks (all optional):
   text_fn(prompt: str) -> (C,) aligned text embedding, e.g.
       `lambda p: encode_and_align(encoder, align, p)[0]` with the live
       `TorchCLIPTextEncoder` or a precomputed store
@@ -30,6 +34,8 @@ Hooks (both optional):
   res_fn(image (H, W, 3) float [0,1], prompt: str) -> (H, W) bool|None,
       e.g. `TorchRESProvider(GroundingDINOTorch(...), SamTorch(...))
       .predict_mask` (query/res.py).
+  edit: EditSession(session.scene, InpaintSDS(TorchDiffusionBackend(...),
+      pos, neg), session.raster_cfg) with its `edit_cameras`.
 
     app = QueryWebApp(session, text_fn=fn, res_fn=prov.predict_mask)
     app.start()        # daemon thread; open http://host:port
@@ -40,10 +46,11 @@ from __future__ import annotations
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
+import torch
 
 from goi_tpu_torch.utils.image import write_video
 from goi_tpu_torch.viewer.web import _to_jpeg, _to_png, orbit_view_camera
@@ -134,11 +141,14 @@ class QueryWebApp:
     access across the handler threads)."""
 
     def __init__(self, session, *, text_fn: Optional[Callable] = None,
-                 res_fn: Optional[Callable] = None, host: str = "0.0.0.0",
+                 res_fn: Optional[Callable] = None, edit=None,
+                 edit_cameras: Optional[List] = None, host: str = "0.0.0.0",
                  port: int = 8091, fovy_deg: float = 50.0):
         self.session = session
         self.text_fn = text_fn
         self.res_fn = res_fn
+        self.edit = edit
+        self.edit_cameras = edit_cameras or []
         self.fovy_deg = fovy_deg
         self.prompt: Optional[str] = None
         self._lock = threading.Lock()
@@ -214,7 +224,9 @@ class QueryWebApp:
                               if s.rel_gs_index is not None else None),
                 "osh_finetuned": bool(s.res_finetuned),
                 "sim_thresh": float(s.sim_thresh),
-                "edit": None,
+                "edit": (None if self.edit is None else
+                         {"relative_cameras":
+                          len(self.edit.relative_cameras)}),
             }
 
     # ---- operations (the GUI button handlers) ----
@@ -279,8 +291,28 @@ class QueryWebApp:
                 path = args.get("out", "query_path.mp4")
                 write_video(frames, path)
                 return {"ok": True, "frames": len(frames), "path": path}
-            if op in ("edit_precompute", "edit_train"):
+            if op in ("edit_precompute", "edit_train") and self.edit is None:
                 raise ValueError("no edit session configured")
+            if op == "edit_precompute":
+                # select views seeing the current query target and build
+                # the frozen-Gaussian mask (ref:gui/main_edit.py:312-395);
+                # the edit session adopts the query scene
+                self.edit.scene = s.scene
+                n = self.edit.precompute(
+                    self.edit_cameras, s.compute_similarity,
+                    min_relative_ratio=float(
+                        args.get("min_relative_ratio", 0.1)))
+                return {"ok": True, "relative_cameras": n}
+            if op == "edit_train":
+                self.edit.train(
+                    generator=torch.Generator(
+                        device=self.edit.scene.device).manual_seed(
+                            int(args.get("seed", 0))),
+                    epochs=int(args.get("epochs", self.edit.max_epochs)),
+                    log_every=int(args.get("log_every", 5)))
+                # the query session renders the edited scene from now on
+                s.adopt_scene(self.edit.scene)
+                return {"ok": True, "num_valid": int(s.scene.num_valid)}
         raise ValueError(f"unknown op {op!r}")
 
     def start(self) -> None:

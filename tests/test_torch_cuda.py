@@ -1018,3 +1018,69 @@ def test_marching_tetrahedra_on_card_equals_cpu(cuda):
         assert len(cpu.faces) > 100
         np.testing.assert_array_equal(card.vertices, cpu.vertices)
         np.testing.assert_array_equal(card.faces, cpu.faces)
+
+
+def test_edit_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One EditSession step on the card against the CPU: a tiny SD backend
+    (tests/test_sd_backend.py's TINY widths, seeded weights), a
+    3000-Gaussian scene, two 160x120 views at batch 2, the same noise. The
+    loss within rtol 1e-4 and every attribute's masked gradient within
+    tests/test_torch_train.py's GRAD_TOL (rtol 2e-3, atol 2e-4 of the
+    peak); float32 with TF32 off on both."""
+    from goi_tpu_torch.app.edit import EditSession
+    from goi_tpu_torch.guidance import InpaintSDS, samplers
+    from goi_tpu_torch.guidance.sd_torch import (AutoencoderKL, SDConfig,
+                                                 TorchDiffusionBackend,
+                                                 UNet2DCondition, init_sd_)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = SDConfig(block_out_channels=(32, 64), layers_per_block=1,
+                   attention_head_dim=2, cross_attention_dim=24,
+                   norm_groups=8, vae_block_out_channels=(16, 32),
+                   vae_layers_per_block=1, num_train_timesteps=50)
+    g = torch.Generator().manual_seed(0)
+    unet = init_sd_(UNet2DCondition(cfg, device="cpu"), g)
+    vae = init_sd_(AutoencoderKL(cfg, device="cpu"), g)
+    pos, neg = torch.randn(7, 24, generator=g), torch.randn(7, 24, generator=g)
+    noise = torch.randn(2, 4, 32, 32, generator=g)
+    monkeypatch.setattr(samplers, "_draw_noise",
+                        lambda gen, shape, device: noise.to(device))
+    aniso = np.log(np.random.default_rng(8).uniform(
+        0.01, 0.05, (3000, 3))).astype(np.float32)
+    masks = torch.zeros(2, 1, 120, 160)
+    masks[:, :, 20:100, 30:140] = 1.0
+    runs = {}
+    for dev in ("cpu", cuda):
+        u = UNet2DCondition(cfg, device=dev)
+        u.load_state_dict(unet.state_dict())
+        v = AutoencoderKL(cfg, device=dev)
+        v.load_state_dict(vae.state_dict())
+        sds = InpaintSDS(TorchDiffusionBackend(u, v, cfg), pos.to(dev),
+                         neg.to(dev), latent_size=32, img_size=64)
+        # per-axis scales, so that the rotation has a gradient
+        scene = _scene(3000, 10, 7, dev).replace(scaling=torch.as_tensor(
+            aniso, device=dev))
+        edit = EditSession(scene, sds, RasterConfig(max_instances=1 << 16),
+                           batch_size=2)
+        edit.grad_mask = (torch.arange(3000, device=dev) % 3 == 0).float()
+        params = edit._leaves()
+        edit._rebind(params)
+        cams = [_cam(dev), Camera.look_at([-1.0, 0.6, -3.8], [0, 0, 0],
+                                          [0, 1, 0], 0.9, 0.7, 160, 120,
+                                          device=dev)]
+        loss = edit.step(params, cams, masks.to(dev),
+                         torch.Generator(device=dev), 0.3)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        runs[str(dev)] = (float(loss), {k: p.grad.cpu()
+                                        for k, p in params.items()})
+    (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
+    assert np.isfinite(lc) and lc > 0
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for k, want in gc.items():
+        got = gg[k]
+        assert not got[1::3].any() and not got[2::3].any(), k
+        peak = float(want.abs().max())
+        if k != "semantics":
+            assert peak > 0, k
+        assert torch.allclose(got, want, rtol=2e-3, atol=2e-4 * peak), k

@@ -76,6 +76,10 @@ TOWER_SLICE_MODULES = (
     "query/_nn.py", "query/clip_text.py", "query/bert.py", "query/swin.py",
     "query/deform_attn.py", "query/grounding.py", "query/sam.py",
     "query/res.py")
+# modules of the SDS guidance and edit-session slice
+EDIT_SLICE_MODULES = (
+    "guidance/__init__.py", "guidance/sd_torch.py", "guidance/sds.py",
+    "guidance/samplers.py", "app/edit.py")
 _GOI_TPU_NAME = re.compile(r"goi_tpu(?!_torch)\b")
 
 
@@ -98,7 +102,7 @@ def test_slice_modules_are_guarded_and_read_no_goi_tpu_file():
     port = ROOT / "goi_tpu_torch"
     assert {port / m for m in SLICE_MODULES + RGB_SLICE_MODULES
             + APP_SLICE_MODULES + EXPORT_SLICE_MODULES
-            + TOWER_SLICE_MODULES} <= set(FILES)
+            + TOWER_SLICE_MODULES + EDIT_SLICE_MODULES} <= set(FILES)
     bad = [f"{p.relative_to(ROOT)}:{line} names {text!r}"
            for p in FILES if p.is_relative_to(port)
            for line, text in _strings_naming_goi_tpu(p)]
@@ -315,6 +319,20 @@ def test_tower_modules_need_no_regex_and_default_to_the_card():
             "grounding_from_numpy", "sam_from_numpy"} <= set(checked)
     enc = inspect.signature(clip_text.TorchCLIPTextEncoder.from_npz)
     assert enc.parameters["device"].default == "cuda"
+
+
+def test_edit_slice_entry_points_default_to_the_card():
+    """The SD modules and loaders take a device that defaults to "cuda";
+    the edit session runs on its scene's device."""
+    import inspect
+
+    from goi_tpu_torch import interop
+    from goi_tpu_torch.guidance import sd_torch
+    for obj in (sd_torch.UNet2DCondition, sd_torch.AutoencoderKL,
+                sd_torch.alphas_cumprod, sd_torch.TorchDiffusionBackend
+                .from_npz, interop.sd_from_numpy):
+        dev = inspect.signature(obj).parameters["device"]
+        assert dev.default == "cuda", obj
 
 
 def _atomic_float_sums(path: Path):
