@@ -49,6 +49,28 @@ exits non-zero without the final result line:
    against render()'s within 1e-5, num_gsem a multiple of 10 with hits,
    a small scene's trace on the card against the CPU; p50/p95 wall time
    and one profiled call;
+6a. [dist1] distribution on one card, a single-rank NCCL group:
+   render_sharded with the 'gather' and the 'rows' exchange (its cap
+   from a lossless probe) on the same scene and view against render()
+   (within 3e-5; bit-equality reported),
+   their gradients (every attribute) within the flip budget of
+   tests/test_sharded_render.py and bit-identical over two passes, and
+   one make_sharded_distill_step step on the (1, 1) mesh against
+   train_step (loss terms rtol 1e-5, gradients at GRAD_TOL, the updated
+   parameters equal where the gradient is past its atol); the launches
+   are counted in two windows that hold no reference call, the sharded
+   renders' and the sharded step's, and each must show gather, blend,
+   blend_bwd and prefix;
+6b. [aligned] the legacy aligned layout (budgets from suggest_budgets'
+   align path) on the main scene with seeded per-axis scales, with each
+   of its reduces 'scatter', 'sorted' and 'cumsum'
+   against the chunked layout: the forward kernel's walked and blended
+   counts equal, the frame within 3e-6, the gradients bit-identical over
+   two passes and at most FLIP_SHARE of their elements past TOL_LAYOUTS
+   of the chunked ones (scaled by the gradient's 99th percentile, as
+   tests/test_torch_reduce.py does; the two layouts sum the same rows in
+   another order),
+   trace()'s hit counts equal; fwd + bwd times;
 7. [widths] the blend, backward and trace kernels at semantic widths
    1, 12, 33, 64 (S_MAX; widths between the kernels' instances run
    padded to the next one), 65, 117 and 128 (in channel groups of
@@ -235,6 +257,17 @@ APP_OSH_EPOCHS = 300
 # tests/test_torch_train.py's GRAD_TOL (rtol, atol): a small scene's RGB
 # step on the card against the CPU's
 GRAD_TOL = (2e-3, 2e-4)
+# [dist1] and [aligned]: the sharded render against render(), the flip
+# budget of tests/test_sharded_render.py's chunked gradient test (at most
+# FLIP_SHARE of the elements past FLIP_TOL[0] + FLIP_TOL[1] |a|, none past
+# FLIP_MAX); the aligned layout against the chunked one at
+# tests/test_chunked_render.py's gradient bar, scaled as share_past_scale
+# says, on all but FLIP_SHARE of the elements
+TOL_DIST_FRAME = 3e-5
+FLIP_SHARE, FLIP_TOL, FLIP_MAX = 0.005, (5e-7, 2e-4), 5e-5
+TOL_LAYOUTS = (5e-3, 5e-4)
+TOL_LIFT = (1e-4, 1e-4)    # tests/test_torch_trace.py's lifted features
+ALIGNED_REDUCES = ("scatter", "sorted", "cumsum")
 # [export]: its own seeded scene, N_GAUSS Gaussians on the unit sphere
 # (isotropic scales uniform in EXPORT_SCALES, opacity EXPORT_OPACITY, DC
 # red above y = 0, blue below), exported by extract_textured_mesh's
@@ -559,6 +592,20 @@ def check_blend(feat, starts, ends, grid_x, label):
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=None)
+
+
+def share_past_scale(a, b, rtol, atol):
+    """(the share of the elements past |a - b| <= rtol max(|b|, q99 |b|)
+    + atol, max |a - b|): the bar of tests/test_torch_reduce.py::
+    test_chain_matches_pallas_chain, for two reduces' sums of the same
+    rows, whose rounding scales with the rows summed (a sum that cancels
+    may be far smaller than its rows); non-finite a counts as past."""
+    import torch
+    mag = b.abs().flatten()
+    q99 = float(mag.kthvalue(max(1, int(0.99 * mag.numel()))).values)
+    err = (a - b).abs()
+    past = ~(err <= rtol * torch.clamp(b.abs(), min=q99) + atol)
+    return float(past.float().mean()), float(err.max())
 
 
 def close_to_peak(a, b, rtol, atol_rel):
@@ -1014,6 +1061,14 @@ def check_prefix_boundary(rows, p, blk, label):
     plain_ms = median_ms(lambda: prefix_boundary_plain(rows, p, blk))
     fused_red_ms = median_ms(lambda: dense_boundary_reduce(rows, p))
     unfused_red_ms = median_ms(lambda: blocked_segment_reduce(rows, p))
+    # the one PyTorch call that gives the same per-Gaussian sums (in
+    # another order: a serial sum per segment)
+    lengths = p.diff()
+    used = rows[:int(p[-1])]
+    lib_ms = median_ms(lambda: torch.segment_reduce(used, "sum",
+                                                    lengths=lengths))
+    lib_err = float((torch.segment_reduce(used, "sum", lengths=lengths)
+                     - dense_boundary_reduce(rows, p)).abs().max())
     nbytes = 4 * (rows.numel() + lb.numel() + tot.numel()) + 8 * p.numel()
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = m * d / PEAK_FP32_PER_S * 1e3
@@ -1023,11 +1078,12 @@ def check_prefix_boundary(rows, p, blk, label):
         f"first-bound table; prefix + "
         f"gather {unfused_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
         f"{max(bytes_ms, ops_ms):.4f} ms (bytes); whole reduce: fused "
-        f"{fused_red_ms:.4f} ms, unfused {unfused_red_ms:.4f} ms")
+        f"{fused_red_ms:.4f} ms, unfused {unfused_red_ms:.4f} ms, "
+        f"torch.segment_reduce {lib_ms:.4f} ms (max diff {lib_err:.3e})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None)
+                library_ms=lib_ms)
 
 
 def check_mono(table, idx):
@@ -1159,6 +1215,282 @@ def trace_phase(scene, cams, cfg, stats):
     log(f"[trace] small scene: counts equal card vs CPU "
         f"({int(want['num_gsem'].sum())}), features max diff {e:.2e}")
     return launches
+
+
+def scene_grads(render_fn, scene, tgt, reduce="mean"):
+    """Every scene attribute's gradient of mean(render * tgt) +
+    mean(semantics) (with reduce="sum" the sums: the two losses of
+    tests/test_sharded_render.py) through render_fn(scene)."""
+    import torch
+    red = getattr(torch, reduce)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in scene.params().items()}
+    out = render_fn(scene.with_params(leaves))
+    (red(out["render"] * tgt) + red(out["semantics"])).backward()
+    return {k: v.grad for k, v in leaves.items()}
+
+
+def flip_budget(want, got, label):
+    """The flip budget of the sharded gradients against one-card ones;
+    returns (share past the bar, max |diff|)."""
+    import torch
+    d = (got - want).abs()
+    share = float((d > FLIP_TOL[0] + FLIP_TOL[1] * want.abs()).float()
+                  .mean())
+    worst = float(d.max())
+    if not bool(torch.isfinite(got).all()) or share > FLIP_SHARE \
+            or worst > FLIP_MAX:
+        raise AssertionError(f"{label}: {share:.4f} of the elements past "
+                             f"the bar (budget {FLIP_SHARE}), max |diff| "
+                             f"{worst} (bound {FLIP_MAX})")
+    return share, worst
+
+
+def frames_agree(out, ref, tol, label):
+    """(bit-equal?, max |diff|) of the four images; raises past tol."""
+    import torch
+    keys = ("render", "semantics", "depth", "alpha")
+    err = max(float((out[k] - ref[k]).abs().max()) for k in keys)
+    if any(out[k].shape != ref[k].shape for k in keys) or err > tol:
+        raise AssertionError(f"{label}: max |diff| {err} (tol {tol})")
+    return all(torch.equal(out[k], ref[k]) for k in keys), err
+
+
+def dist1_phase(scene, cams, cfg):
+    """[dist1]: distribution's path on one card, a single-rank NCCL
+    group: render_sharded with both exchanges against render(), their
+    gradients within the flip budget and bit-identical over two passes,
+    and one make_sharded_distill_step step on the (1, 1) mesh against
+    train_step."""
+    import torch
+    import torch.distributed as dist
+    from goi_tpu_torch.dist import (init_multihost, make_mesh,
+                                    make_sharded_distill_step,
+                                    render_sharded, shard_batch,
+                                    stack_cameras)
+    from goi_tpu_torch.dist.multihost import free_port
+    from goi_tpu_torch.raster.render import render
+    from goi_tpu_torch.semantic.codebook import SemanticDecoder
+    from goi_tpu_torch.train.distill import create_distill_state
+    from goi_tpu_torch.train.optim import OptimConfig
+    t_phase = time.perf_counter()
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        bg = torch.zeros(3, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        tgt = torch.randn((3, HEIGHT, WIDTH), generator=gen, device="cuda")
+        with torch.no_grad():
+            ref = render(scene, cams[0], bg, cfg)
+        want = scene_grads(lambda s: render(s, cams[0], bg, cfg), scene, tgt)
+        # two windows of launch counts, each holding only the sharded
+        # path's own: the exchanges' passes, then the (1, 1) step
+        reset_counts()
+        with torch.no_grad():   # the rows exchange's lossless cap
+            cap = int(render_sharded(
+                scene, cams[0], bg, cfg, mesh, exchange="rows",
+                exchange_cap=scene.capacity)["exchange_demand"])
+        for exchange, kw in (("gather", {}),
+                             ("rows", dict(exchange_cap=cap))):
+            with torch.no_grad():
+                out = render_sharded(scene, cams[0], bg, cfg, mesh,
+                                     exchange=exchange, **kw)
+            equal, err = frames_agree(out, ref, TOL_DIST_FRAME,
+                                      f"[dist1] {exchange} frame")
+            if int(out["num_slots"]) > out["local_budget"]:
+                raise AssertionError(f"[dist1] {exchange}: num_slots "
+                                     f"{int(out['num_slots'])} past "
+                                     f"{out['local_budget']}")
+            extra = ""
+            if exchange == "rows":
+                if int(out["exchange_demand"]) > out["exchange_cap"]:
+                    raise AssertionError("[dist1] rows: demand past the cap")
+                extra = (f", exchange demand {int(out['exchange_demand'])} "
+                         f"<= cap {out['exchange_cap']} (a lossless probe's)")
+            grads = [scene_grads(lambda s: render_sharded(
+                s, cams[0], bg, cfg, mesh, exchange=exchange, **kw), scene,
+                tgt) for _ in range(2)]
+            if not all(torch.equal(grads[0][k], grads[1][k]) for k in want):
+                raise AssertionError(f"[dist1] {exchange}: gradients differ "
+                                     f"between two passes")
+            flips = {k: flip_budget(want[k], grads[0][k],
+                                    f"[dist1] {exchange} {k}")
+                     for k in want}
+            log(f"[dist1] {exchange}: frame "
+                f"{'bit-equal to' if equal else 'within'} render()'s (max "
+                f"diff {err:.3e}, tol {TOL_DIST_FRAME}), num_slots "
+                f"{int(out['num_slots'])} <= {out['local_budget']}{extra}; "
+                f"7 gradients bit-identical over two passes, worst flip "
+                f"share {max(f[0] for f in flips.values()):.5f} (budget "
+                f"{FLIP_SHARE}), max |diff| "
+                f"{max(f[1] for f in flips.values()):.3e} (bound "
+                f"{FLIP_MAX})")
+            del grads
+        del want
+        render_counts = read_counts()
+        launched("[dist1] render_sharded", render_counts)
+
+        # one distillation step on the (1, 1) mesh against train_step
+        maps = feature_maps(1, 21, WIDTH, HEIGHT, "cuda")
+        g = torch.Generator().manual_seed(21)
+        decoder = SemanticDecoder.create(g, dim_in=SEM_DIM, dim_out=TAB_LEN,
+                                         device="cuda")
+        lut = torch.randn((TAB_LEN, APE_DIM), generator=g).to("cuda")
+        state, train_step = create_distill_state(scene, decoder, lut,
+                                                 OptimConfig())
+        state, aux = train_step(state, cams[0], maps[0], bg, cfg)
+        init_fn, step_fn = make_sharded_distill_step(OptimConfig(), cfg,
+                                                     mesh=mesh)
+        sstate = init_fn(scene, decoder, lut)
+        c_b, g_b = shard_batch(mesh, stack_cameras([cams[0]]), maps[0][None])
+        reset_counts()
+        sstate, saux = step_fn(sstate, c_b, g_b, bg)
+        step_counts = read_counts()
+        launched("[dist1] sharded step", step_counts)
+        for k in ("lab", "sl", "sl1", "recc", "total"):
+            if not math.isclose(float(saux[k]), float(aux[k]), rel_tol=1e-5):
+                raise AssertionError(f"[dist1] step {k}: {float(saux[k])} vs "
+                                     f"train_step's {float(aux[k])}")
+        pairs = [(sstate.scene.semantics, state.scene.semantics),
+                 (sstate.decoder.weights[0], state.decoder.weights[0]),
+                 (sstate.lut, state.lut)]
+        worst = 0.0
+        for a, b in pairs:
+            ok, err = close_to_peak(a.grad, b.grad, *GRAD_TOL)
+            moved = b.grad.abs() > GRAD_TOL[1] * float(b.grad.abs().max())
+            if not ok or not torch.allclose(a[moved], b[moved], rtol=1e-6,
+                                            atol=1e-7):
+                raise AssertionError(f"[dist1] step: gradients or updated "
+                                     f"parameters differ (max grad diff "
+                                     f"{err})")
+            worst = max(worst, err)
+        log(f"[dist1] make_sharded_distill_step on the (1, 1) mesh: loss "
+            f"{float(saux['total']):.6f} = train_step's "
+            f"{float(aux['total']):.6f} (rtol 1e-5), the semantics, decoder "
+            f"and LUT gradients within {GRAD_TOL} of the peak (max diff "
+            f"{worst:.3e}) and their updated values equal where the "
+            f"gradient is past the atol; phase {time.perf_counter() - t_phase:.1f} s; "
+            f"launches: render_sharded {render_counts}, step {step_counts}")
+        del state, sstate, maps
+    finally:
+        dist.destroy_process_group()
+    return {k: render_counts[k] + step_counts[k] for k in render_counts}
+
+
+def launched(label, counts):
+    """Raises unless the window's counts show the sharded path's forward
+    and backward kernels (the 'chain' reduce's prefix included)."""
+    for k in ("gather", "blend", "blend_bwd", "prefix"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{label}: {k} was not launched: {counts}")
+
+
+def aligned_phase(scene, cams, cfg):
+    """[aligned]: the legacy aligned layout on the 1M scene (its scales
+    made anisotropic) with the 'scatter', 'sorted' and 'cumsum' reduces
+    against the chunked layout:
+    the blend's walked and blended counts and trace()'s hit counts equal,
+    the frame within 3e-6, the gradients of a summed loss bit-identical
+    over two passes, and at most FLIP_SHARE of their elements past
+    TOL_LAYOUTS of the chunked ones (share_past_scale); fwd + bwd
+    times."""
+    import torch
+    from goi_tpu_torch.raster.cuda_blend import K, blend_fwd
+    from goi_tpu_torch.raster.render import (RasterConfig, render,
+                                             suggest_budgets, trace)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    # per-axis scales (0.5x-2x): an isotropic Gaussian's rotation gradient
+    # is rounding noise, which two reduces cannot agree on
+    scene = scene.replace(scaling=scene.scaling + torch.log(
+        0.5 + 1.5 * torch.rand(scene.scaling.shape, generator=gen,
+                               device="cuda")))
+    mi, mb = suggest_budgets(scene, cams, margin=1.2, align=K,
+                             layout="aligned")
+    cfg = RasterConfig(max_instances=suggest_budgets(scene, cams,
+                                                     margin=1.2)[0],
+                       reduce=cfg.reduce)
+    bg = torch.zeros(3, device="cuda")
+    tgt = torch.randn((3, HEIGHT, WIDTH), generator=gen, device="cuda")
+    img = torch.randn((SEM_DIM, HEIGHT, WIDTH), generator=gen, device="cuda")
+
+    def counts_of(c):
+        feat, starts, ends, grid_x = capture_inputs(scene, cams[0], c)["blend"]
+        raw = blend_fwd(feat, starts, ends, grid_x)
+        return raw[..., feat.shape[0] - 5:]    # walked, blended
+
+    def fwd_bwd(c):
+        return scene_grads(lambda s: render(s, cams[0], bg, c), scene, tgt,
+                           "sum")
+
+    with torch.no_grad():
+        ref = render(scene, cams[0], bg, cfg)
+    if int(ref["num_slots"]) > cfg.max_instances:
+        raise AssertionError("[aligned] the chunked frame overflowed")
+    ref_counts = counts_of(cfg)
+    ref_grads = fwd_bwd(cfg)
+    ref_trace = trace(scene, cams[0], img, bg, cfg)
+    chunked_ms = median_ms(lambda: fwd_bwd(cfg), iters=3, warmup=1)
+    configs = {r: RasterConfig(max_instances=mi, max_binned=mb,
+                               layout="aligned", reduce=r)
+               for r in ALIGNED_REDUCES}
+    for reduce, acfg in configs.items():
+        if not torch.equal(counts_of(acfg), ref_counts):
+            raise AssertionError(f"[aligned] {reduce}: walked/blended "
+                                 f"counts differ from the chunked layout's")
+    del ref_counts
+
+    reset_counts()
+    times = {}
+    for reduce, acfg in configs.items():
+        with torch.no_grad():
+            out = render(scene, cams[0], bg, acfg)
+        equal, err = frames_agree(out, ref, 3e-6, f"[aligned] {reduce}")
+        if int(out["num_slots"]) > mb or int(out["num_instances"]) > mi:
+            raise AssertionError(f"[aligned] {reduce}: num_slots past "
+                                 f"the budgets")
+        g1, g2 = fwd_bwd(acfg), fwd_bwd(acfg)
+        if not all(torch.equal(g1[k], g2[k]) for k in g1):
+            raise AssertionError(f"[aligned] {reduce}: gradients differ "
+                                 f"between two passes")
+        worst, share = 0.0, 0.0
+        for k in g1:
+            sh, e = share_past_scale(g1[k], ref_grads[k], *TOL_LAYOUTS)
+            if sh > FLIP_SHARE:
+                raise AssertionError(f"[aligned] {reduce} {k}: {sh:.4f} of "
+                                     f"the elements past the bar (budget "
+                                     f"{FLIP_SHARE}), max diff {e}")
+            worst, share = max(worst, e), max(share, sh)
+        times[reduce] = median_ms(lambda: fwd_bwd(acfg), iters=3, warmup=1)
+        log(f"[aligned] {reduce}: frame {'bit-equal to' if equal else 'within'}"
+            f" the chunked one (max diff {err:.3e}), walked/blended counts "
+            f"equal; gradients of the summed loss bit-identical over two "
+            f"passes; against the chunked ones {share:.5f} of the elements "
+            f"past {TOL_LAYOUTS[0]} x max(|g|, q99 |g|) + {TOL_LAYOUTS[1]} "
+            f"(budget {FLIP_SHARE}), max diff {worst:.3e}; fwd + bwd "
+            f"{times[reduce]:.2f} ms")
+    atrace = trace(scene, cams[0], img, bg, configs["scatter"])
+    counts = read_counts()
+    if not torch.equal(atrace["num_gsem"], ref_trace["num_gsem"]):
+        raise AssertionError("[aligned] trace hit counts differ from the "
+                             "chunked layout's")
+    share, err = share_past_scale(atrace["gaussian_semantics"],
+                                  ref_trace["gaussian_semantics"], *TOL_LIFT)
+    if share > FLIP_SHARE or not torch.allclose(
+            atrace["render"], ref_trace["render"], rtol=3e-6, atol=3e-6):
+        raise AssertionError(f"[aligned] trace: {share:.4f} of the lifted "
+                             f"features past {TOL_LIFT}, max diff {err}")
+    log(f"[aligned] budgets max_instances={mi} max_binned={mb} (chunked "
+        f"{cfg.max_instances}); trace hit counts equal to the chunked "
+        f"layout's ({int(atrace['num_gsem'].sum()) // SEM_DIM} hits), lifted "
+        f"features: {share:.5f} past {TOL_LIFT} (scaled), max diff "
+        f"{err:.3e}; fwd + bwd chunked {chunked_ms:.2f} ms "
+        f"vs aligned {times}; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {counts}")
+    for k in ("gather", "blend", "blend_bwd", "prefix", "trace"):
+        if counts[k] <= 0:
+            raise AssertionError(f"[aligned] {k} was not launched: {counts}")
+    return counts
 
 
 def widths_phase():
@@ -3472,6 +3804,16 @@ def main() -> int:
     trace_launches = trace_phase(scene, cams, cfg, stats)
     launches = {k: launches.get(k, 0) + trace_launches.get(k, 0)
                 for k in set(launches) | set(trace_launches)}
+
+    # ---- 6a. distribution's single-rank path ----
+    torch.cuda.empty_cache()
+    for k, n in dist1_phase(scene, cams, cfg).items():
+        launches[k] = launches.get(k, 0) + n
+
+    # ---- 6b. the legacy aligned layout ----
+    torch.cuda.empty_cache()
+    for k, n in aligned_phase(scene, cams, cfg).items():
+        launches[k] = launches.get(k, 0) + n
     del scene
 
     # ---- 7. the kernels at other widths ----

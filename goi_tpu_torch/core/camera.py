@@ -125,6 +125,31 @@ class Camera:
                               device=device)
 
 
+_TENSOR_FIELDS = ("world_view", "full_proj", "camera_center", "tan_fovx",
+                  "tan_fovy")
+
+
+def stack_cameras(cams) -> Camera:
+    """list[Camera] -> one Camera whose tensor fields gain a leading
+    batch axis; the widths and heights must agree."""
+    sizes = {(c.width, c.height) for c in cams}
+    if len(sizes) != 1:
+        raise ValueError(f"cameras of one (width, height) expected, got "
+                         f"{sorted(sizes)}")
+    return dataclasses.replace(cams[0], **{
+        f: torch.stack([getattr(c, f) for c in cams]) for f in _TENSOR_FIELDS})
+
+
+def unstack_cameras(cams) -> list:
+    """A stacked Camera (stack_cameras) -> list[Camera]; a list or tuple
+    of cameras is returned as a list."""
+    if not isinstance(cams, Camera):
+        return list(cams)
+    return [dataclasses.replace(cams, **{f: getattr(cams, f)[i]
+                                         for f in _TENSOR_FIELDS})
+            for i in range(cams.world_view.shape[0])]
+
+
 def ndc2pix(v, size):
     """NDC [-1,1] -> continuous pixel coordinate
     (ref:cuda_rasterizer/auxiliary.h:41-44)."""

@@ -53,6 +53,24 @@ def scene_from_numpy(fields: Mapping[str, np.ndarray], *,
                          max_sh_degree=int(max_sh_degree))
 
 
+def scene_shard_from_numpy(fields: Mapping[str, np.ndarray], rank: int,
+                           world: int, device="cuda", *,
+                           active_sh_degree: int,
+                           max_sh_degree: int) -> GaussianScene:
+    """Rank `rank` of `world`'s rows [rank * N / world, (rank + 1) * N /
+    world) of a whole scene's fields (as scene_from_numpy's; N must
+    divide by world): the shard dist.mesh.shard_scene gives that rank."""
+    n = np.asarray(fields["valid"]).shape[0]
+    if n % world:
+        raise ValueError(f"capacity {n} not divisible by {world} shards")
+    rows = slice(rank * (n // world), (rank + 1) * (n // world))
+    return scene_from_numpy(
+        {k: np.asarray(fields[k])[rows]
+         for k in GaussianScene.PARAM_FIELDS + ("valid",)},
+        active_sh_degree=active_sh_degree, max_sh_degree=max_sh_degree,
+        device=device)
+
+
 def camera_from_numpy(world_view, full_proj, camera_center, tan_fovx,
                       tan_fovy, width: int, height: int,
                       device="cuda") -> Camera:

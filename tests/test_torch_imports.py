@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "goi_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_smoke_dist.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -80,6 +80,22 @@ TOWER_SLICE_MODULES = (
 EDIT_SLICE_MODULES = (
     "guidance/__init__.py", "guidance/sd_torch.py", "guidance/sds.py",
     "guidance/samplers.py", "app/edit.py")
+# modules of the distribution slice, and the aligned layout's functions in
+# the raster modules
+DIST_SLICE_MODULES = (
+    "dist/__init__.py", "dist/mesh.py", "dist/multihost.py",
+    "dist/collectives.py", "dist/render.py", "dist/shard.py", "scale.py",
+    "eval_sweep.py", "examples/main_path_hash.py")
+ALIGNED_FUNCTIONS = {
+    "raster/binning.py": ("tile_counts", "_expand_instances",
+                          "exact_tile_counts", "bin_splats"),
+    "raster/reduce.py": ("expansion_order", "segment_sums",
+                         "reduce_scatter_serial", "reduce_sorted",
+                         "reduce_cumsum"),
+    "raster/cuda_blend.py": ("pack", "reduce_rows", "reduce_inputs"),
+    "raster/render.py": ("_bin_and_blend", "suggest_budgets"),
+    "core/camera.py": ("stack_cameras", "unstack_cameras"),
+    "interop.py": ("scene_shard_from_numpy",)}
 _GOI_TPU_NAME = re.compile(r"goi_tpu(?!_torch)\b")
 
 
@@ -102,7 +118,12 @@ def test_slice_modules_are_guarded_and_read_no_goi_tpu_file():
     port = ROOT / "goi_tpu_torch"
     assert {port / m for m in SLICE_MODULES + RGB_SLICE_MODULES
             + APP_SLICE_MODULES + EXPORT_SLICE_MODULES
-            + TOWER_SLICE_MODULES + EDIT_SLICE_MODULES} <= set(FILES)
+            + TOWER_SLICE_MODULES + EDIT_SLICE_MODULES
+            + DIST_SLICE_MODULES + tuple(ALIGNED_FUNCTIONS)} <= set(FILES)
+    for m, names in ALIGNED_FUNCTIONS.items():
+        tree = ast.parse((port / m).read_text())
+        defined = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+        assert set(names) <= defined, (m, set(names) - defined)
     bad = [f"{p.relative_to(ROOT)}:{line} names {text!r}"
            for p in FILES if p.is_relative_to(port)
            for line, text in _strings_naming_goi_tpu(p)]

@@ -159,8 +159,13 @@ def test_config_budgets_and_layout_helpers():
                                   img)
 
     tc = tcams[0]
-    with pytest.raises(NotImplementedError):
-        render(ts, tc, torch.zeros(3), RasterConfig(layout="aligned"))
+    # the aligned layout renders the chunked frame (the same instances in
+    # the same order; tests/test_chunked_render.py's 3e-6)
+    chunked = render(ts, tc, torch.zeros(3), RasterConfig())
+    aligned = render(ts, tc, torch.zeros(3), RasterConfig(layout="aligned"))
+    for k in IMAGES:
+        np.testing.assert_allclose(aligned[k].numpy(), chunked[k].numpy(),
+                                   rtol=3e-6, atol=3e-6, err_msg=k)
     for bad in (dict(backend="pallas"), dict(reduce="cumsum"),
                 dict(layout="rows")):
         with pytest.raises(ValueError):
