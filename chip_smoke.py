@@ -20,7 +20,10 @@ exits non-zero without the final result line:
    per-warp cull keeps (the cull's plain twin, blend.block_cull_plain,
    on the card); the blend backward and the block prefix
    on that 100k frame's backward here and on a full-width training
-   step's in phase 5 (tolerances at TOL_BWD and TOL_PREFIX);
+   step's in phase 5 (tolerances at TOL_BWD and TOL_PREFIX), and there
+   the block owners' sums (owner_sums, the prefix's read-out at the
+   bounds plus each segment's whole blocks) bit-exact against their
+   plain version in both read-out forms, beside torch.segment_reduce;
 4. [main] the query path: a seeded 1,000,000-Gaussian scene (SH degree
    3, 10 semantic channels), a 10->300 decoder and a 300x256 LUT, saved
    as the PLY + pickle + LUT.npy triplet and loaded back; QuerySession
@@ -60,7 +63,7 @@ exits non-zero without the final result line:
    parameters equal where the gradient is past its atol); the launches
    are counted in two windows that hold no reference call, the sharded
    renders' and the sharded step's, and each must show gather, blend,
-   blend_bwd and prefix;
+   blend_bwd, prefix and owner_sums;
 6b. [aligned] the legacy aligned layout (budgets from suggest_budgets'
    align path) on the main scene with seeded per-axis scales, with each
    of its reduces 'scatter', 'sorted' and 'cumsum'
@@ -209,7 +212,8 @@ DENSE_STEPS = 5     # distillation steps with the fused reduce
 N_TRACES = 6        # trace() calls on the main path, cycling the views
 MICRO_ITERS = 5     # steps per figure of the micro-benchmark
 KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "trace",
-                  "prefix_boundary", "mono_rows", "density_grid")
+                  "prefix_boundary", "mono_rows", "density_grid",
+                  "owner_sums")
 # [widths]: semantic widths between and at the kernels' instances (S_MAX
 # = 64 the widest), past it in channel groups (65, 117 = the pallas
 # blend's widest, 128), lift widths past one warp's 32 lanes (127 =
@@ -364,6 +368,25 @@ def median_ms(fn, iters=10, warmup=2):
     return float(np.median(times))
 
 
+def device_ms(fn, kernel, iters=10):
+    """Mean device ms a call of the kernels whose name holds `kernel`,
+    over iters calls of fn() under torch.profiler: the kernel's own time,
+    without the host's launch, which CUDA events around a call include
+    when the card waits for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in e.key) / 1e3 / iters
+
+
 def make_scene(n, seed, device, sem_dim=SEM_DIM):
     """Seeded synthetic scene at the published widths (SH degree 3,
     10 semantic channels), like the JAX package's bench scene."""
@@ -403,7 +426,8 @@ def orbit_cams(width, height, n, device, dist=4.5):
 
 def capture(run):
     """Call run() and record the arguments the path hands to each kernel
-    wrapper (the last call of each; the wrappers themselves run as
+    wrapper (the last call of each, keyword arguments after the
+    positional ones in the order given; the wrappers themselves run as
     usual)."""
     import importlib
     import torch
@@ -415,15 +439,16 @@ def capture(run):
              "blend_bwd": (cuda_blend, "blend_bwd"),
              "prefix": (reduce, "prefix_blocks"),
              "trace": (render_mod, "trace_fwd"),
-             "prefix_boundary": (reduce, "prefix_boundary")}
+             "prefix_boundary": (reduce, "prefix_boundary"),
+             "owner_sums": (reduce, "owner_sums")}
     orig = {k: getattr(mod, attr) for k, (mod, attr) in sites.items()}
     seen = {}
 
     def recorder(name):
-        def rec(*args):
+        def rec(*args, **kw):
             seen[name] = tuple(a.detach() if torch.is_tensor(a) else a
-                               for a in args)
-            return orig[name](*args)
+                               for a in args + tuple(kw.values()))
+            return orig[name](*args, **kw)
         # a wrapper counts on the module attribute it is called through,
         # so the launches of this capture land here and not in the counts
         rec.launches = 0
@@ -804,6 +829,9 @@ def train_phase(scene, cams, cfg, stats):
         *seen["blend_bwd"], label=f"1M {WIDTH}x{HEIGHT} train step")
     stats["prefix"] = check_prefix(
         *seen["prefix"], label=f"1M {WIDTH}x{HEIGHT} train step")
+    stats["owner_sums"] = check_owner_sums(
+        *seen["owner_sums"], rows=seen["prefix"][0],
+        label=f"1M {WIDTH}x{HEIGHT} train step")
     del seen
 
     # two backward passes of one step: bit-identical gradients
@@ -838,7 +866,8 @@ def train_phase(scene, cams, cfg, stats):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(aux["total"]))
     launches = {k: n for k, n in read_counts().items()
-                if k in ("gather", "blend", "blend_bwd", "prefix")}
+                if k in ("gather", "blend", "blend_bwd", "prefix",
+                         "owner_sums")}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     p50, p95 = np.percentile(step_ms, [50, 95])
     log(f"[train] {N_STEPS} steps at {WIDTH}x{HEIGHT}, 1M Gaussians, "
@@ -872,13 +901,15 @@ def train_phase(scene, cams, cfg, stats):
         if not math.isfinite(float(aux["total"])):
             raise AssertionError("non-finite loss with dense_reduce")
     counts = read_counts()
-    if counts["prefix_boundary"] != DENSE_STEPS or counts["prefix"]:
+    if counts["prefix_boundary"] != DENSE_STEPS or counts["prefix"] \
+            or counts["owner_sums"] != DENSE_STEPS:
         raise AssertionError(f"dense_reduce steps launched {counts}")
     log(f"[train] {DENSE_STEPS} steps with dense_reduce=True: step p50 "
         f"{np.percentile(dense_ms, 50):.1f} ms, max {max(dense_ms):.1f} ms; "
-        f"launches prefix_boundary={counts['prefix_boundary']} prefix=0")
+        f"launches prefix_boundary={counts['prefix_boundary']} "
+        f"owner_sums={counts['owner_sums']} prefix=0")
     launches["prefix_boundary"] = counts["prefix_boundary"]
-    for k in ("gather", "blend", "blend_bwd"):
+    for k in ("gather", "blend", "blend_bwd", "owner_sums"):
         launches[k] += counts[k]
     return launches
 
@@ -1086,6 +1117,63 @@ def check_prefix_boundary(rows, p, blk, label):
                 library_ms=lib_ms)
 
 
+def check_owner_sums(prefix, p, tot, blk, indexed, rows, label):
+    """The block owners' sums against their plain version bit for bit,
+    in the path's read-out form and in the other one, with times beside
+    torch.segment_reduce of the block term and of the whole per-Gaussian
+    sum (rows, the reduce's stream)."""
+    import torch
+    from goi_tpu_torch.raster.reduce import owner_sums, owner_sums_plain
+    out = owner_sums(prefix, p, tot, blk, indexed)
+    ref = owner_sums_plain(prefix, p, tot, blk, indexed)
+    lb = prefix[p] if indexed else prefix
+    fused = owner_sums(lb, p, tot, blk, False)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, ref) and torch.equal(fused, out)):
+        raise AssertionError(f"owner_sums {label}: not bit-identical to its "
+                             f"plain version in both read-out forms")
+    del ref, fused
+    n, d = out.shape
+    spans = (p // blk).diff()
+    blocks = int(spans.sum())
+    ms = median_ms(lambda: owner_sums(prefix, p, tot, blk, indexed))
+    lb_ms = median_ms(lambda: owner_sums(lb, p, tot, blk, False))
+    kernel_ms = device_ms(lambda: owner_sums(prefix, p, tot, blk, indexed),
+                          "owner_sums_kernel")
+    lb_kernel_ms = device_ms(lambda: owner_sums(lb, p, tot, blk, False),
+                             "owner_sums_kernel")
+    plain_ms = median_ms(lambda: owner_sums_plain(prefix, p, tot, blk,
+                                                  indexed))
+    q0 = int(p[0]) // blk
+    block_ms = median_ms(lambda: torch.segment_reduce(
+        tot[q0:q0 + blocks], "sum", lengths=spans))
+    used, lengths = rows[int(p[0]):int(p[-1])], p.diff()
+    lib_ms = median_ms(lambda: torch.segment_reduce(used, "sum",
+                                                    lengths=lengths))
+    # each read-out row, bound and block total the segments need read
+    # once, each sum written once; a subtract and an add per value, an
+    # add per value of a whole block
+    nbytes = 4 * (p.numel() * d + blocks * d + n * d) + 8 * p.numel()
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (2 * n * d + blocks * d) / PEAK_FP32_PER_S * 1e3
+    log(f"[kernels] owner_sums {label}: {n} segments x {d}, {tot.shape[0]} "
+        f"blocks of {blk} ({blocks} whole blocks in segments, "
+        f"{int((spans >= 3).sum())} segments of >= 3, the longest "
+        f"{int(spans.max())}), read-out {'indexed' if indexed else 'lb'}: "
+        f"torch.equal to its plain version, and the lb form to this one; "
+        f"a call {ms:.4f} ms (lb form {lb_ms:.4f} ms), the kernel on the "
+        f"device {kernel_ms:.4f} ms (lb form {lb_kernel_ms:.4f} ms, "
+        f"profiler), plain {plain_ms:.4f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations "
+        f"{ops_ms:.4f}); torch.segment_reduce of the block term "
+        f"{block_ms:.4f} ms, of the whole sum over the rows {lib_ms:.4f} "
+        f"ms")
+    return dict(max_abs_err=0.0, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=lib_ms)
+
+
 def check_mono(table, idx):
     import torch
     from goi_tpu_torch.raster.gather import mono_rows, mono_rows_plain
@@ -1149,7 +1237,7 @@ def trace_phase(scene, cams, cfg, stats):
             outs.append(out)
     counts = read_counts()
     launches = {k: counts[k] for k in ("trace", "gather", "prefix",
-                                       "prefix_boundary")}
+                                       "prefix_boundary", "owner_sums")}
     if counts["blend"] or counts["blend_bwd"]:
         raise AssertionError(f"trace ran a blend kernel: {counts}")
     if min(launches.values()) <= 0:
@@ -1379,8 +1467,9 @@ def dist1_phase(scene, cams, cfg):
 
 def launched(label, counts):
     """Raises unless the window's counts show the sharded path's forward
-    and backward kernels (the 'chain' reduce's prefix included)."""
-    for k in ("gather", "blend", "blend_bwd", "prefix"):
+    and backward kernels (the 'chain' reduce's prefix and owner sums
+    included)."""
+    for k in ("gather", "blend", "blend_bwd", "prefix", "owner_sums"):
         if counts[k] <= 0:
             raise AssertionError(f"{label}: {k} was not launched: {counts}")
 
@@ -2052,7 +2141,8 @@ def rgb_phase():
             setattr(rgb, name, fn)
     train_s = time.perf_counter() - t_train
     launches = {k: n for k, n in read_counts().items()
-                if k in ("gather", "blend", "blend_bwd", "prefix")}
+                if k in ("gather", "blend", "blend_bwd", "prefix",
+                         "owner_sums")}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     losses = np.array([r[2] for r in iters])
@@ -3896,6 +3986,17 @@ def main() -> int:
              source="goi_tpu_torch/raster/csrc/density_grid.cu",
              replaces="goi_tpu/export/mesh.py:24-71 (XLA, no Pallas)",
              launches=launches["density_grid"], **stats["density_grid"]),
+        dict(name="owner_sums", route="cuda",
+             source="goi_tpu_torch/raster/csrc/owner_sums.cu",
+             replaces="goi_tpu/raster/pallas_blend.py:367-389 and :622-629 "
+                      "(the read-out and XLA's jax.ops.segment_sum, no "
+                      "Pallas)",
+             launches=launches["owner_sums"],
+             note="ms: CUDA events around a wrapper call; kernel_ms: the "
+                  "kernel's own device time (profiler); library_ms: "
+                  "torch.segment_reduce of the rows over the bounds, the "
+                  "whole per-Gaussian sum this kernel completes",
+             **stats["owner_sums"]),
     ]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")

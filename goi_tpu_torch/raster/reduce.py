@@ -15,13 +15,18 @@ with `blocked_segment_reduce`:
 
 The sums never use float atomics (`index_add_`, `scatter_add_`,
 accumulating `index_put_` on CUDA), so a backward gives the same bits on
-every run. The block prefix is the hand-written CUDA kernel
-csrc/prefix.cu on a CUDA tensor and `prefix_blocks_plain` on a CPU
-tensor. The TPU's pad fill, payload sort and row mask (its rows were
-indexed by (tile, chunk)) do not carry over: the port's rows are indexed
-by sorted position, and rows past the kept instances are zero, so the
-reduces pass no mask to the prefix (the kernel still takes one, as the
-TPU kernel did).
+every run. Two hand-written CUDA kernels do the 'chain' sum on a CUDA
+tensor, their plain versions on a CPU tensor: the block prefix
+(csrc/prefix.cu, `prefix_blocks_plain`), then the read-out of the
+prefix at the bounds with each segment's whole-block term
+(csrc/owner_sums.cu `owner_sums`, `owner_sums_plain`: one fp32 sum of
+the block totals in ascending block order, the counterpart of the JAX
+package's `jax.ops.segment_sum` over the blocks' owners). The TPU's pad
+fill, payload sort and row mask (its rows were indexed by (tile,
+chunk)) do not carry over: the port's rows are indexed by sorted
+position, and rows past the kept instances are zero, so the reduces pass
+no mask to the prefix (the kernel still takes one, as the TPU kernel
+did).
 
 The legacy aligned layout (`RasterConfig(layout="aligned")`, the
 counterparts of `_reduce_instance_grads`, `_reduce_instance_grads_sorted`
@@ -39,14 +44,17 @@ bounds.
 `dense_boundary_reduce` (`RasterConfig.dense_reduce`, the counterpart of
 `_dense_boundary_reduce`) gives blocked_segment_reduce's bits with the
 prefix and its read-out at the bounds fused into csrc/prefix_boundary.cu
-(`prefix_boundary`; `prefix_boundary_plain` on a CPU tensor). Its blocks
-find their bounds in a first-bound table (`block_first_bounds_plain` is
-the table's plain twin).
+(`prefix_boundary`; `prefix_boundary_plain` on a CPU tensor), whose
+read-out `owner_sums` takes as it is. Its blocks find their bounds in a
+first-bound table (`block_first_bounds_plain` is the table's plain
+twin).
 
-Both kernels keep a block's (blk, d) rows in shared memory, so rows
+Both prefix kernels keep a block's (blk, d) rows in shared memory, so rows
 wider than fits (d > 106 at blk = 512, as a trace of more than 105
 channels gives) are scanned in column slices, one launch each: every
 column's scan is its own, so the bits are those of one launch.
+`owner_sums` keeps nothing in shared memory and takes any width in one
+launch.
 """
 
 from __future__ import annotations
@@ -71,6 +79,10 @@ _BOUNDARY_SIGNATURES = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p]}
+_OWNER_SIGNATURES = {"goi_owner_sums": [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p]}
 
 
 def column_slices(d: int, blk: int, smem: int):
@@ -146,30 +158,6 @@ def prefix_blocks(rows: torch.Tensor, okf: Optional[torch.Tensor] = None,
 
 
 prefix_blocks.launches = 0
-
-
-def _block_owner_sums(tot: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """(n, d) sums of the block totals tot[b], b in [q[g], q[g + 1]), for
-    non-decreasing q: a segmented inclusive scan over the blocks (each
-    block has one owner, so the owners' runs are the segments), read at
-    each run's last block. Hillis-Steele steps of adds within one
-    segment: deterministic, and the rounding scales with the segment's
-    own sum (no difference of larger prefixes)."""
-    nb = tot.shape[0]
-    owner = torch.searchsorted(q, torch.arange(nb, device=q.device),
-                               right=True)
-    x = tot
-    head = torch.ones(nb, dtype=torch.bool, device=tot.device)
-    head[1:] = owner[1:] != owner[:-1]
-    off = 1
-    while off < nb:
-        x = torch.cat([x[:off], torch.where(head[off:, None], x[off:],
-                                            x[off:] + x[:-off])])
-        head = torch.cat([head[:off], head[off:] | head[:-off]])
-        off *= 2
-    last = torch.clamp(q[1:] - 1, min=0)
-    return torch.where((q[1:] > q[:-1])[:, None], x[last],
-                       torch.zeros_like(x[last]))
 
 
 def block_first_bounds_plain(p: torch.Tensor, nb: int,
@@ -251,21 +239,85 @@ def _blocked(rows: torch.Tensor, bounds: torch.Tensor):
     return rows, blk, torch.clamp(bounds.long(), max=m)
 
 
+def owner_sums_plain(prefix: torch.Tensor, p: torch.Tensor,
+                     tot: torch.Tensor, blk: int, indexed: bool):
+    """Plain version of the kernel: (n, d) with row g = (prefix[hi] -
+    prefix[lo]) + the block totals tot[b], b in [p[g] // blk, p[g + 1] //
+    blk), added one block at a time in ascending b to a sum from +0.0
+    ((lo, hi) = (p[g], p[g + 1]) if `indexed`, else (g, g + 1)). A
+    segment past its last block adds +0.0, which leaves such a sum as it
+    is, so every segment's sum is the kernel's."""
+    p = p.long()
+    q = p // blk
+    span = (q[1:] - q[:-1])[:, None]
+    acc = torch.zeros((span.shape[0], tot.shape[1]), dtype=tot.dtype,
+                      device=tot.device)
+    last = max(tot.shape[0] - 1, 0)
+    for k in range(int(span.max()) if span.numel() else 0):
+        acc = acc + torch.where(k < span,
+                                tot[torch.clamp(q[:-1] + k, max=last)], 0.0)
+    if indexed:
+        return (prefix[p[1:]] - prefix[p[:-1]]) + acc
+    return (prefix[1:] - prefix[:-1]) + acc
+
+
+def owner_sums(prefix: torch.Tensor, p: torch.Tensor, tot: torch.Tensor,
+               blk: int, indexed: bool):
+    """The per-segment sums of blocked_segment_reduce from a block prefix:
+    prefix ((nb + 1) * blk, d) float32, every row's block-local exclusive
+    prefix (prefix_blocks' inner) if `indexed`, else (n + 1, d) already
+    read out at the bounds (prefix_boundary's lb); p (n + 1,) int64
+    non-decreasing in [0, nb * blk]; tot (nb, d) the block totals ->
+    (n, d), row g = (L[p[g + 1]] - L[p[g]]) + the totals of the whole
+    blocks in [p[g] // blk, p[g + 1] // blk), summed in ascending block
+    order."""
+    if prefix.dim() != 2 or tot.dim() != 2 or p.dim() != 1 \
+            or prefix.shape[1] != tot.shape[1]:
+        raise ValueError(f"prefix (rows, d), p (n + 1,) and tot (nb, d) "
+                         f"expected, got {tuple(prefix.shape)}, "
+                         f"{tuple(p.shape)}, {tuple(tot.shape)}")
+    if not _nvcc.is_cuda(prefix):
+        return owner_sums_plain(prefix, p, tot, blk, indexed)
+    if prefix.dtype != torch.float32 or tot.dtype != torch.float32 \
+            or p.dtype != torch.int64:
+        raise TypeError("float32 prefix and tot, int64 p expected")
+    if p.device != prefix.device or tot.device != prefix.device:
+        raise ValueError("prefix, p and tot must be on the same CUDA device")
+    n, d = p.shape[0] - 1, prefix.shape[1]
+    if max(prefix.numel(), tot.numel(), p.shape[0] * d) >= 2 ** 31:
+        raise ValueError(f"the kernel indexes in 32 bits: prefix "
+                         f"{tuple(prefix.shape)} and {p.shape[0]} bounds "
+                         f"are too many")
+    lib = _nvcc.library("owner_sums", _OWNER_SIGNATURES)
+    prefix, p, tot = prefix.contiguous(), p.contiguous(), tot.contiguous()
+    out = torch.empty((n, d), dtype=torch.float32, device=prefix.device)
+    if n * d == 0:
+        return out
+    _nvcc.check(lib.goi_owner_sums(
+        prefix.data_ptr(), int(indexed), p.data_ptr(), n, d, tot.data_ptr(),
+        blk, out.data_ptr(), _nvcc.stream()), "owner_sums")
+    owner_sums.launches += 1
+    return out
+
+
+owner_sums.launches = 0
+
+
 def blocked_segment_reduce(rows: torch.Tensor, bounds: torch.Tensor):
     """Per-segment sums of Gaussian-major rows with block-local error.
 
     rows (m, d); bounds (n + 1,) non-decreasing segment boundaries
     (clamped to m here). Returns (n, d) with
 
-      seg(g) = L[p_g+1] - L[p_g] + sum of tot[b], b in [p_g // B, p_g+1 // B)
+      seg(g) = (L[p_g+1] - L[p_g]) + sum of tot[b], b in [p_g // B, p_g+1 // B)
 
     where L is the block-local exclusive prefix and tot the block totals
-    (B rows a block): no quantity of the stream's global magnitude is
-    ever formed (PARITY.md deviation 9)."""
+    (B rows a block; the block term summed in ascending b): no quantity
+    of the stream's global magnitude is ever formed (PARITY.md deviation
+    9)."""
     rows, blk, p = _blocked(rows, bounds)
     inner, tot = prefix_blocks(rows, None, blk)
-    lb = inner[p]
-    return lb[1:] - lb[:-1] + _block_owner_sums(tot, p // blk)
+    return owner_sums(inner, p, tot, blk, indexed=True)
 
 
 def dense_boundary_reduce(rows: torch.Tensor, bounds: torch.Tensor):
@@ -275,7 +327,7 @@ def dense_boundary_reduce(rows: torch.Tensor, bounds: torch.Tensor):
     Bounds may repeat (the chain's clamp under a budget overflow)."""
     rows, blk, p = _blocked(rows, bounds)
     lb, tot = prefix_boundary(rows, p, blk)
-    return lb[1:] - lb[:-1] + _block_owner_sums(tot, p // blk)
+    return owner_sums(lb, p, tot, blk, indexed=False)
 
 
 def reduce_chain(rows: torch.Tensor, sort_slots: torch.Tensor,

@@ -15,8 +15,8 @@ scan of up to 512 rows in another order); the trace kernel's render at
 the forward's 5e-5, its hit counts and the plain version's exactly (both
 multiply the transmittance in the same order), its lifted features at
 tests/test_trace.py's 1e-4 (sums of up to 256 pixels in another order);
-the fused prefix-boundary reduce, the expansion gathers and the mono
-row gather bit for bit.
+the fused prefix-boundary reduce, the block owners' sums (owner_sums),
+the expansion gathers and the mono row gather bit for bit.
 """
 
 import numpy as np
@@ -845,6 +845,51 @@ def test_prefix_boundary_wide_rows_in_column_slices(cuda):
     want, want_tot = R.prefix_blocks_plain(rows, None, 512)
     scale = float(want.abs().max())
     torch.testing.assert_close(inner, want, rtol=1e-4, atol=1e-5 * scale)
+
+
+def _span_bounds(spans, blk, nb, rng, tail):
+    """Bounds from a random start whose segments span the given numbers
+    of whole blocks (0: within one block), then `tail`."""
+    p = [int(rng.integers(0, blk))]
+    for span in spans:
+        q = p[-1] // blk + span
+        lo = p[-1] if span == 0 else q * blk
+        p.append(int(rng.integers(lo, (q + 1) * blk)))
+    assert p[-1] < nb * blk
+    return np.asarray(p + list(tail), np.int64)
+
+
+@pytest.mark.parametrize("d", [1, 20, 117])
+@pytest.mark.parametrize("case", ["spans", "repeated", "end", "long"])
+def test_owner_sums_kernel_equals_plain(cuda, case, d):
+    """The owner_sums kernel torch.equal to its plain version (the same
+    serial sum in ascending block order) in both read-out forms: spans
+    of 0-3 and 11 blocks, repeated bounds (the chain's clamp), bounds at
+    the stream's end, and segments of 512-4096 rows at 128-row blocks."""
+    rng = np.random.default_rng(d + len(case))
+    blk = 128 if case == "long" else 32
+    spans = rng.permutation(np.repeat([0, 1, 2, 3, 11], 40))
+    if case == "long":
+        spans = rng.integers(4, 33, 60)
+    nb = int(spans.sum()) + 2
+    m = nb * blk
+    tail = {"repeated": [m - 1, m - 1, m, m], "end": [m, m]}.get(case, [])
+    p = _span_bounds(spans, blk, nb, rng, tail)
+    if case == "repeated":
+        p = np.sort(np.concatenate([p, p[::3]]))
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    rows = torch.randn((m, d), generator=gen, device=cuda) * 10
+    inner, tot = R.prefix_blocks(rows, None, blk)
+    p = torch.as_tensor(p, device=cuda)
+    before = R.owner_sums.launches
+    got = R.owner_sums(inner, p, tot, blk, indexed=True)
+    fused = R.owner_sums(inner[p], p, tot, blk, indexed=False)
+    torch.cuda.synchronize()
+    assert R.owner_sums.launches == before + 2
+    assert torch.equal(got, R.owner_sums_plain(inner, p, tot, blk, True))
+    assert torch.equal(fused, got)
+    want = R.blocked_segment_reduce(rows.cpu(), p.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("n,m,c,blk,span", [

@@ -271,6 +271,19 @@ def test_prefix_boundary_wrapper_raises_without_library(no_library):
     assert reduce.prefix_boundary.launches == before
 
 
+def test_owner_sums_wrapper_raises_without_library(no_library):
+    before = reduce.owner_sums.launches
+    p = torch.tensor([0, 3, 512], dtype=torch.int64)
+    inner, tot = torch.zeros(1024, 4), torch.zeros(1, 4)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        reduce.owner_sums(inner, p, tot, 512, indexed=True)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        reduce.owner_sums(inner[p], p, tot, 512, indexed=False)
+    with pytest.raises(TypeError):
+        reduce.owner_sums(inner, p.int(), tot, 512, indexed=True)
+    assert reduce.owner_sums.launches == before
+
+
 def test_mono_rows_wrapper_raises_without_library(no_library):
     before = gather.mono_rows.launches
     idx = torch.arange(8, dtype=torch.int32)

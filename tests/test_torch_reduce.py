@@ -1,7 +1,9 @@
 """The port's instance -> Gaussian reductions (raster/reduce.py, the
 prefix kernel's plain version on the CPU) against goi_tpu's: the block
 prefix against `_prefix_blocks` in interpret mode, the blocked segment
-reduce against `_blocked_segment_reduce` and a float64 oracle, and the
+reduce against `_blocked_segment_reduce` and a float64 oracle, its
+read-out and block term (`owner_sums_plain`, the owner_sums kernel's
+plain version) against a serial fp32 sum in ascending block order, and the
 'chain' reduce against 'scatter' through render's backward, mirroring
 tests/test_chunked_render.py (rtol 5e-3, atol 5e-4: the two sum in
 different orders)."""
@@ -182,14 +184,93 @@ def test_blocked_segment_reduce_matches_pallas(m):
 
 
 def test_block_owner_sums_match_direct_sums():
+    """owner_sums_plain's whole-block term (a zero read-out) against
+    float64 sums of the block totals over random owner runs."""
     rng = np.random.default_rng(5)
     tot = rng.normal(0, 1, (300, 4)).astype(np.float32)
     q = np.sort(rng.integers(0, 301, 60))
     q[0] = 0
-    got = R._block_owner_sums(torch.as_tensor(tot), torch.as_tensor(q))
+    blk = R.CUMSUM_BLOCK
+    got = R.owner_sums_plain(torch.zeros(60, 4), torch.as_tensor(q * blk),
+                             torch.as_tensor(tot), blk, indexed=False)
     want = np.stack([tot[a:b].astype(np.float64).sum(0)
                      for a, b in zip(q[:-1], q[1:])])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+OWNER_BLK, OWNER_NB = 32, 40
+OWNER_SPANS = (0, 1, 2, 3, 11)   # whole blocks a segment spans
+
+
+def _owner_bounds(case, rng):
+    """Bounds whose segments span each of OWNER_SPANS blocks, twice in a
+    random order; 'repeated' puts runs of equal bounds between them and
+    ends on the clamp's repeats at the stream's last row, 'end' ends on
+    bounds at the stream's end nb * blk."""
+    spans = rng.permutation(np.repeat(OWNER_SPANS, 2))
+    p = [int(rng.integers(0, OWNER_BLK))]
+    for span in spans:
+        if case == "repeated":
+            p += [p[-1]] * int(rng.integers(1, 3))
+        q = p[-1] // OWNER_BLK + span
+        lo = p[-1] if span == 0 else q * OWNER_BLK
+        p.append(int(rng.integers(lo, (q + 1) * OWNER_BLK)))
+    m = OWNER_NB * OWNER_BLK
+    assert p[-1] < m
+    if case == "repeated":
+        p += [m - 1, m, m, m]
+    elif case == "end":
+        p += [m, m]
+    return np.asarray(p, np.int64)
+
+
+@pytest.mark.parametrize("d", [1, 20, 117])
+@pytest.mark.parametrize("case", ["spans", "repeated", "end"])
+def test_owner_sums_plain_is_a_serial_sum(case, d):
+    """Both read-out forms give, bit for bit, (L[hi] - L[lo]) + one fp32
+    sum of the block totals from +0.0 in ascending block order (the
+    kernel's order), within 1e-5 of the same terms in float64."""
+    rng = np.random.default_rng(OWNER_SPANS[-1] * d + len(case))
+    p = _owner_bounds(case, rng)
+    inner = rng.normal(0, 1, ((OWNER_NB + 1) * OWNER_BLK, d)).astype(
+        np.float32)
+    inner[OWNER_NB * OWNER_BLK:] = 0.0       # the trailing zero block
+    tot = rng.normal(0, 1, (OWNER_NB, d)).astype(np.float32)
+    q = p // OWNER_BLK
+    assert set(OWNER_SPANS) <= set(np.diff(q).tolist())
+    serial = np.empty((len(p) - 1, d), np.float32)
+    exact = np.empty((len(p) - 1, d))
+    for g in range(len(p) - 1):
+        acc = np.zeros(d, np.float32)
+        for b in range(q[g], q[g + 1]):
+            acc = acc + tot[b]
+        serial[g] = (inner[p[g + 1]] - inner[p[g]]) + acc
+        exact[g] = (inner[p[g + 1]].astype(np.float64) - inner[p[g]]
+                    + tot[q[g]:q[g + 1]].astype(np.float64).sum(0))
+    t_inner, t_p, t_tot = map(torch.as_tensor, (inner, p, tot))
+    for got in (R.owner_sums_plain(t_inner, t_p, t_tot, OWNER_BLK, True),
+                R.owner_sums_plain(t_inner[t_p], t_p, t_tot, OWNER_BLK,
+                                   False)):
+        assert torch.equal(got, torch.as_tensor(serial))
+        np.testing.assert_allclose(got.numpy(), exact, rtol=1e-5, atol=1e-5)
+
+
+def test_owner_sums_routes_and_checks():
+    """On a CPU tensor the wrapper is its plain version; shapes it does
+    not take raise."""
+    rng = np.random.default_rng(9)
+    rows = torch.as_tensor(rng.normal(0, 1, (1024, 3)).astype(np.float32))
+    p = torch.tensor([0, 3, 700, 700, 1024])
+    inner, tot = R.prefix_blocks(rows)
+    before = R.owner_sums.launches
+    got = R.owner_sums(inner, p, tot, 512, indexed=True)
+    assert torch.equal(got, R.owner_sums_plain(inner, p, tot, 512, True))
+    assert torch.equal(got, R.blocked_segment_reduce(rows, p))
+    assert R.owner_sums.launches == before
+    with pytest.raises(ValueError):
+        R.owner_sums(inner, p, tot[:, :2], 512, indexed=True)
+    with pytest.raises(ValueError):
+        R.owner_sums(inner, p[:, None], tot, 512, indexed=True)
 
 
 def test_reduce_scatter_and_chain_sum_by_gaussian():
