@@ -20,7 +20,10 @@ exits non-zero without the final result line:
    per-warp cull keeps (the cull's plain twin, blend.block_cull_plain,
    on the card); the blend backward and the block prefix
    on that 100k frame's backward here and on a full-width training
-   step's in phase 5 (tolerances at TOL_BWD and TOL_PREFIX), and there
+   step's in phase 5 (tolerances at TOL_BWD and TOL_PREFIX; the prefix
+   also bit for bit against prefix_boundary's read-out of every row,
+   timed beside a device-to-device copy of its rows, the ceiling of a
+   kernel that reads and writes as many bytes), and there
    the block owners' sums (owner_sums, the prefix's read-out at the
    bounds plus each segment's whole blocks) bit-exact against their
    plain version in both read-out forms, beside torch.segment_reduce;
@@ -368,6 +371,23 @@ def median_ms(fn, iters=10, warmup=2):
     return float(np.median(times))
 
 
+def run_ms(fn, iters=20):
+    """Device ms a call over a run of back-to-back calls between two CUDA
+    events (after one warm-up): the host's launch gaps hide behind the
+    calls before them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def device_ms(fn, kernel, iters=10):
     """Mean device ms a call of the kernels whose name holds `kernel`,
     over iters calls of fn() under torch.profiler: the kernel's own time,
@@ -682,10 +702,26 @@ def check_blend_bwd(feat, starts, ends, raw, grad, grid_x, label):
 
 
 def check_prefix(rows, okf, blk, label):
+    """The block prefix against prefix_boundary's read-out of every row
+    bit for bit (the same scan order, fed its own way) and against its
+    plain version within TOL_PREFIX, timed beside torch.cumsum and a
+    device-to-device copy of the rows (as many bytes read and written:
+    the ceiling a kernel bound by bytes can reach)."""
     import torch
-    from goi_tpu_torch.raster.reduce import prefix_blocks, prefix_blocks_plain
+    from goi_tpu_torch.raster.reduce import (prefix_blocks,
+                                             prefix_blocks_plain,
+                                             prefix_boundary)
     inner, tot = prefix_blocks(rows, okf, blk)
+    m, d = rows.shape
+    x = rows if okf is None else rows * okf.reshape(m, 1)
+    lb, lb_tot = prefix_boundary(x, torch.arange(m + 1, device=rows.device),
+                                 blk)
     torch.cuda.synchronize()
+    if not (torch.equal(inner[:m + 1], lb) and torch.equal(tot, lb_tot)
+            and not inner[m:].any()):
+        raise AssertionError(f"prefix {label}: not bit-identical to "
+                             f"prefix_boundary's read-out of every row")
+    del x, lb, lb_tot
     ref_inner, ref_tot = prefix_blocks_plain(rows, okf, blk)
     torch.cuda.synchronize()
     ok_i, err_i = close_to_peak(inner, ref_inner, *TOL_PREFIX)
@@ -696,24 +732,38 @@ def check_prefix(rows, okf, blk, label):
     err = max(err_i, err_t)
     if not (ok_i and ok_t):
         raise AssertionError(f"prefix {label}: max |kernel - plain| {err}")
-    m, d = rows.shape
+    del ref_inner, ref_tot
     nb = m // blk
     ms = median_ms(lambda: prefix_blocks(rows, okf, blk))
+    in_run_ms = run_ms(lambda: prefix_blocks(rows, okf, blk))
+    kernel_ms = device_ms(lambda: prefix_blocks(rows, okf, blk),
+                          "prefix_kernel")
     plain_ms = median_ms(lambda: prefix_blocks_plain(rows, okf, blk))
     lib_ms = median_ms(lambda: torch.cumsum(rows.view(nb, blk, d), dim=1))
+    dst = torch.empty_like(rows)
+    copy_ms = run_ms(lambda: dst.copy_(rows))
+    del dst
     nbytes = 4 * (rows.numel() + (0 if okf is None else okf.numel())
                   + inner.numel() + tot.numel())
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = m * d / PEAK_FP32_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     log(f"[kernels] prefix {label}: rows=({m}, {d}) block={blk} "
-        f"masked={okf is not None} max_err={err:.3e} (tol rtol "
-        f"{TOL_PREFIX[0]} + {TOL_PREFIX[1]} x peak); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, cumsum {lib_ms:.4f} ms, bound "
-        f"{max(bytes_ms, ops_ms):.4f} ms (bytes)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
+        f"masked={okf is not None}: torch.equal to prefix_boundary's "
+        f"read-out of every row, max_err vs plain={err:.3e} (tol rtol "
+        f"{TOL_PREFIX[0]} + {TOL_PREFIX[1]} x peak); a call {ms:.4f} ms, "
+        f"{in_run_ms:.4f} ms a call in a run of calls "
+        f"({100 * bound_ms / in_run_ms:.1f}% of the bound), the kernel on "
+        f"the device {kernel_ms:.4f} ms (profiler), plain {plain_ms:.4f} "
+        f"ms, cumsum {lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); "
+        f"copy ceiling: rows.copy_ ({rows.numel() * 4 / 1e6:.1f} MB) "
+        f"{copy_ms:.4f} ms a call in a run ({100 * bound_ms / copy_ms:.1f}% "
+        f"of the bound; the prefix at {copy_ms / in_run_ms:.3f}x its "
+        f"speed)")
+    return dict(max_abs_err=err, ms=ms, run_ms=in_run_ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=lib_ms)
+                library_ms=lib_ms, copy_ms=copy_ms)
 
 
 def profile(run, what, top=12):
@@ -3966,7 +4016,13 @@ def main() -> int:
         dict(name="prefix", route="cuda",
              source="goi_tpu_torch/raster/csrc/prefix.cu",
              replaces="goi_tpu/raster/pallas_blend.py:245",
-             launches=launches["prefix"], **stats["prefix"]),
+             launches=launches["prefix"],
+             note="ms: CUDA events around a wrapper call; run_ms: a "
+                  "call in a run of calls; kernel_ms: the kernel's own "
+                  "device time (profiler); copy_ms: rows.copy_ in a run "
+                  "(as many bytes read and written), the ceiling beside "
+                  "bound_ms",
+             **stats["prefix"]),
         dict(name="trace", route="cuda",
              source="goi_tpu_torch/raster/csrc/trace.cu",
              replaces="goi_tpu/raster/pallas_blend.py:1106",

@@ -16,11 +16,14 @@ scene (SH degree 3, 10 semantic channels) at 1296x968 over 3 orbit views
   against the scene's own render of the view);
 - the whole per-Gaussian sum of one step's backward, unfused
   (`blocked_segment_reduce`) and fused (`dense_boundary_reduce`), beside
-  `torch.segment_reduce` of the same rows over the same bounds.
+  `torch.segment_reduce` of the same rows over the same bounds;
+- the block prefix (`prefix_blocks`) and the unfused sum on seeded rows
+  of that stream's length and WIDTHS columns, over the same bounds.
 
 Wall times are medians of host clocks around calls that end in a
 synchronise; the reduces are timed with CUDA events; one profiled call of
-each path gives its device-busy ms and its count of device ops. It
+each path gives its device-busy ms and its count of device ops (of the
+prefix, ten calls, as device-busy ms a call). It
 prints one JSON line. To compare two checkouts, run it for the parent,
 the change, the change and the parent, one after another on one card.
 """
@@ -41,6 +44,9 @@ from goi_tpu_torch.examples.main_path_hash import (HEIGHT, SEM_DIM, WIDTH,
 APE_DIM, TAB_LEN, N_PROTOS = 256, 300, 12
 N_VIEWS = 3
 WARMUP, ITERS = 5, 30
+# the main path's rows (10 semantic channels and 10 more terms), and those
+# of 32, 64 and 128 semantic channels
+WIDTHS = (20, 42, 74, 138)
 
 
 def _cams(device):
@@ -179,6 +185,18 @@ def main() -> None:
     result["reduce_routes_equal"] = bool(torch.equal(
         reduce.blocked_segment_reduce(rows, bounds),
         reduce.dense_boundary_reduce(rows, bounds)))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    result["widths"] = {}
+    for d in WIDTHS:
+        x = torch.randn((rows.shape[0], d), generator=gen, device=dev)
+        busy, _ = _profile(lambda: [reduce.prefix_blocks(x)
+                                    for _ in range(10)])
+        result["widths"][d] = dict(
+            prefix_ms=_events(lambda: reduce.prefix_blocks(x)),
+            prefix_busy_ms=busy / 10,
+            unfused_reduce_ms=_events(
+                lambda: reduce.blocked_segment_reduce(x, bounds)))
+        del x
     del rows, bounds, used, p, lengths
 
     # trace()

@@ -1,16 +1,17 @@
 // Block-local exclusive row scan, shared by csrc/prefix.cu and
-// csrc/prefix_boundary.cu so that both produce the same bits
-// (prefix_boundary.cu loads the rows its own way and calls
-// scan_columns).
+// csrc/prefix_boundary.cu so that both produce the same bits (each loads
+// the rows its own way and calls scan_columns).
 //
 // A block of `blk` rows of a row-major (blk, d) float32 matrix goes
 // through shared memory column-major with a skew: column c, row r at
 // c * (blk + 33) + r + r / run, run = blk / 32. The row-major fill
 // (neighbouring columns) and the scan (lanes run + 1 apart) both hit
-// distinct banks. Warp w scans columns w, w + 8, ...: lane l sums its run
-// of blk / 32 consecutive rows, a shuffle scan over the 32 lanes gives
-// each run its offset, and the lane writes its run's exclusive prefix in
-// place. The order is fixed, so the result is the same on every run.
+// distinct banks. Of a CTA of NT threads, warp w scans columns w, w +
+// NT / 32, ...: lane l sums its run of blk / 32 consecutive rows, a
+// shuffle scan over the 32 lanes gives each run its offset, and the lane
+// writes its run's exclusive prefix in place. Which warp takes a column
+// does not change its sums, so the result is the same for every NT and
+// on every run.
 
 #pragma once
 
@@ -36,16 +37,16 @@ __device__ __forceinline__ int slot(int r, int c, int blk) {
 
 // Replaces the block's rows, loaded into sh at slot(r, c, blk), by their
 // exclusive prefix and writes the block's column totals to tot (d
-// floats). Every thread of the block must call it after a barrier that
-// follows the loads; it ends with a barrier, after which sh holds the
-// prefix.
-template <int RUN = 0>
+// floats). Every thread of the block (NT threads) must call it after a
+// barrier that follows the loads; it ends with a barrier, after which sh
+// holds the prefix.
+template <int RUN = 0, int NT = THREADS>
 __device__ __forceinline__ void scan_columns(int d, int blk, float* sh,
                                              float* __restrict__ tot) {
   const int tid = threadIdx.x;
   const int run = RUN > 0 ? RUN : blk / 32;
   const int lane = tid & 31;
-  for (int c = tid >> 5; c < d; c += THREADS / 32) {
+  for (int c = tid >> 5; c < d; c += NT / 32) {
     float* col = sh + c * (blk + 33) + lane * (run + 1);
     float s = 0.f;
     for (int i = 0; i < run; ++i) s += col[i];
@@ -65,27 +66,6 @@ __device__ __forceinline__ void scan_columns(int d, int blk, float* sh,
     if (lane == 31) tot[c] = acc;
   }
   __syncthreads();
-}
-
-// Loads the block's rows (scaled by okf[r] when okf is not null) into
-// sh, replaces them by their exclusive prefix and writes the block's
-// column totals to tot (d floats). Every thread of the block must call
-// it; it ends with a barrier, after which sh holds the prefix.
-__device__ __forceinline__ void exclusive_scan(const float* __restrict__ in,
-                                               const float* __restrict__ okf,
-                                               int d, int blk, float* sh,
-                                               float* __restrict__ tot) {
-  const int tid = threadIdx.x;
-  const int n = blk * d;
-  for (int e = tid; e < n; e += THREADS) {
-    const int r = e / d;
-    const int c = e - r * d;
-    float x = in[e];
-    if (okf != nullptr) x *= okf[r];
-    sh[slot(r, c, blk)] = x;
-  }
-  __syncthreads();
-  scan_columns(d, blk, sh, tot);
 }
 
 }  // namespace goi_scan

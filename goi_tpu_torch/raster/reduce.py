@@ -53,6 +53,9 @@ Both prefix kernels keep a block's (blk, d) rows in shared memory, so rows
 wider than fits (d > 106 at blk = 512, as a trace of more than 105
 channels gives) are scanned in column slices, one launch each: every
 column's scan is its own, so the bits are those of one launch.
+`prefix_blocks` brings rows in and out through a ring of stages where
+the ring fits beside the scan buffer (d <= 36 at blk = 512) and loads
+and stores them directly past that, in the same launch.
 `owner_sums` keeps nothing in shared memory and takes any width in one
 launch.
 """
@@ -139,11 +142,22 @@ def prefix_blocks(rows: torch.Tensor, okf: Optional[torch.Tensor] = None,
         raise TypeError("float32 rows and okf expected")
     if okf is not None and okf.device != rows.device:
         raise ValueError("rows and okf must be on the same CUDA device")
-    lib = _nvcc.library("prefix", _SIGNATURES)
     okf = None if okf is None else okf.contiguous()
-    nb = rows.shape[0] // blk
+    m, d = rows.shape
+    if (m + blk) * d >= 2 ** 31:
+        raise ValueError(f"the kernel indexes in 32 bits: rows "
+                         f"{tuple(rows.shape)} are too many")
+    lib = _nvcc.library("prefix", _SIGNATURES)
+    nb = m // blk
 
     def launch(part):
+        # the kernel's bulk copies read whole blocks from 16-byte
+        # boundaries: the tensors it is given (a view that is not
+        # contiguous is copied first)
+        for name, t in (("rows", part), ("okf", okf)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary "
+                                 f"for the kernel's bulk copies")
         d = part.shape[1]
         inner = torch.empty(((nb + 1) * blk, d), dtype=torch.float32,
                             device=rows.device)

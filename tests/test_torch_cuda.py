@@ -15,8 +15,9 @@ scan of up to 512 rows in another order); the trace kernel's render at
 the forward's 5e-5, its hit counts and the plain version's exactly (both
 multiply the transmittance in the same order), its lifted features at
 tests/test_trace.py's 1e-4 (sums of up to 256 pixels in another order);
-the fused prefix-boundary reduce, the block owners' sums (owner_sums),
-the expansion gathers and the mono row gather bit for bit.
+the fused prefix-boundary reduce, the block prefix against its
+read-out, the block owners' sums (owner_sums), the expansion gathers and
+the mono row gather bit for bit.
 """
 
 import numpy as np
@@ -416,6 +417,90 @@ def test_prefix_kernel_matches_plain(cuda, blk, nb, d, masked):
                                atol=1e-5 * scale)
     torch.testing.assert_close(tot, want_tot, rtol=1e-4, atol=1e-5 * scale)
     assert not inner[nb * blk:].any()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("nb", [1, 50])
+@pytest.mark.parametrize("d", [1, 13, 20, 26, 36, 37, 70, 138])
+@pytest.mark.parametrize("blk", [128, 256, 512])
+def test_prefix_kernel_equals_prefix_boundary(cuda, blk, d, nb, masked):
+    """The block prefix, bit for bit, against prefix_boundary's read-out
+    of every row (the same scan_columns order, its rows loaded its own
+    way): one block, fewer blocks than SMs; at 512-row blocks d <= 36
+    through the ring of stages, 37 and 70 loaded directly, 138 in two
+    column slices; at 128-row blocks every width through the ring."""
+    _prefix_vs_boundary(cuda, blk, d, nb, masked)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d,nb", [(20, 300), (26, 700), (42, 600),
+                                  (70, 400)])
+def test_prefix_kernel_equals_prefix_boundary_many_trips(cuda, d, nb,
+                                                         masked):
+    """Blocks far past the SM count, so each persistent CTA walks the
+    ring of stages round several times (d = 20, 26), or its blocks one
+    after another with direct loads (42: two CTAs an SM; 70: one)."""
+    _prefix_vs_boundary(cuda, 512, d, nb, masked)
+
+
+def _prefix_vs_boundary(device, blk, d, nb, masked):
+    m = nb * blk
+    gen = torch.Generator(device=device).manual_seed(blk * d + nb)
+    rows = torch.randn((m, d), generator=gen, device=device) * 10
+    okf = (torch.rand(m, generator=gen, device=device) > 0.2).float() \
+        if masked else None
+    before = R.prefix_blocks.launches
+    inner, tot = R.prefix_blocks(rows, okf, blk)
+    again, tot2 = R.prefix_blocks(rows, okf, blk)
+    torch.cuda.synchronize()
+    smem = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    slices = len(R.column_slices(d, blk, smem))   # one launch each
+    assert R.prefix_blocks.launches == before + 2 * slices
+    assert inner.shape == ((nb + 1) * blk, d) and tot.shape == (nb, d)
+    x = rows if okf is None else rows * okf[:, None]
+    lb, want_tot = R.prefix_boundary(x, torch.arange(m + 1, device=device),
+                                     blk)
+    assert torch.equal(inner[:m + 1], lb)
+    assert torch.equal(tot, want_tot)
+    assert not inner[m:].any()
+    assert torch.equal(again, inner) and torch.equal(tot2, tot)
+
+
+def test_prefix_kernel_refuses_misaligned_rows(cuda):
+    """The bulk copies read from 16-byte boundaries: a view of the rows
+    or the mask that starts 4 bytes in raises, and nothing launches."""
+    blk, d = 128, 4
+    flat = torch.randn(2 * blk * d + 1, device=cuda)
+    rows = flat[1:].view(2 * blk, d)
+    okf = torch.ones(2 * blk + 1, device=cuda)
+    before = R.prefix_blocks.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        R.prefix_blocks(rows, None, blk)
+    with pytest.raises(ValueError, match="16-byte"):
+        R.prefix_blocks(flat[:-1].view(2 * blk, d), okf[1:], blk)
+    assert R.prefix_blocks.launches == before
+    inner, _ = R.prefix_blocks(rows.clone(), okf[:-1], blk)
+    assert R.prefix_blocks.launches == before + 1
+    assert not inner[2 * blk:].any()
+
+
+def test_prefix_kernel_takes_a_misaligned_view(cuda):
+    """A view that is not contiguous, 4 bytes in (x[:, 1:]), reaches the
+    kernel as a fresh copy and gives the bits of that copy."""
+    blk = 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((3 * blk, 21), generator=gen, device=cuda)
+    okf = (torch.rand((3 * blk, 2), generator=gen, device=cuda) > 0.3) \
+        .float()
+    rows, mask = x[:, 1:], okf[:, 1]
+    assert rows.data_ptr() % 16 and not rows.is_contiguous()
+    before = R.prefix_blocks.launches
+    inner, tot = R.prefix_blocks(rows, mask, blk)
+    want, want_tot = R.prefix_blocks(rows.contiguous(), mask.contiguous(),
+                                     blk)
+    torch.cuda.synchronize()
+    assert R.prefix_blocks.launches == before + 2
+    assert torch.equal(inner, want) and torch.equal(tot, want_tot)
 
 
 @pytest.mark.parametrize("m", [5 * 512, 3000])

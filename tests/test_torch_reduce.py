@@ -9,6 +9,7 @@ tests/test_chunked_render.py (rtol 5e-3, atol 5e-4: the two sum in
 different orders)."""
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -163,6 +164,89 @@ def test_prefix_blocks_routes_and_checks():
         R.prefix_blocks(torch.ones(1000, 3))
     with pytest.raises(ValueError):
         R.prefix_blocks(rows, torch.ones(7))
+
+
+H100_SMEM_OPTIN = 232_448   # shared memory one CTA may opt in to
+
+
+class _PrefixLibrary:
+    """Stands in for csrc/prefix.cu's library: records the rows pointer,
+    the okf pointer and the width of each launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def goi_prefix_blocks(self, rows, okf, d, nb, blk, inner, tot, stream):
+        self.calls.append((rows, okf, d))
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """prefix_blocks on CPU tensors taken for CUDA ones, launching into a
+    recording stand-in of the kernel's library on an H100's shared
+    memory."""
+    lib = _PrefixLibrary()
+    monkeypatch.setattr(R._nvcc, "is_cuda", lambda t: True)
+    monkeypatch.setattr(R._nvcc, "library", lambda *a, **k: lib)
+    monkeypatch.setattr(R._nvcc, "stream", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(
+                            shared_memory_per_block_optin=H100_SMEM_OPTIN))
+    return lib
+
+
+@pytest.mark.parametrize("d,blk", [(1, 512), (13, 512), (20, 512),
+                                   (26, 512), (36, 512), (37, 512),
+                                   (70, 512), (106, 512), (107, 512),
+                                   (138, 512), (360, 128), (70, 256)])
+def test_prefix_blocks_one_launch_a_slice(fake_card, d, blk):
+    """One launch for each column slice of the scan buffer (inside one,
+    the kernel brings the rows through its ring of stages where that
+    fits and loads them directly past it): every width up to 106 at
+    512-row blocks, the main path's 20 among them, is one launch on the
+    rows themselves, no copy; wider rows go in slices that cover the
+    columns once, each a fresh 16-byte-aligned copy."""
+    rows = torch.zeros(2 * blk, d)
+    before = R.prefix_blocks.launches
+    inner, tot = R.prefix_blocks(rows, None, blk)
+    assert inner.shape == (3 * blk, d) and tot.shape == (2, d)
+    sl = R.column_slices(d, blk, H100_SMEM_OPTIN)
+    assert [w for _, _, w in fake_card.calls] == [c1 - c0 for c0, c1 in sl]
+    assert R.prefix_blocks.launches == before + len(sl)
+    assert all(ptr % 16 == 0 for ptr, _, _ in fake_card.calls)
+    if len(sl) == 1:
+        assert fake_card.calls[0][0] == rows.data_ptr()
+    if blk == 512:      # the H100's limit: 106 columns of 512-row blocks
+        assert (len(sl) == 1) == (d <= 106)
+
+
+def test_prefix_blocks_copies_a_misaligned_view(fake_card):
+    """A view that is not contiguous reaches the kernel as a fresh copy,
+    so its first element's offset does not matter: rows[:, 1:] starts 4
+    bytes in and launches."""
+    rows = torch.zeros(512, 5)[:, 1:]
+    assert rows.data_ptr() % 16 and not rows.is_contiguous()
+    okf = torch.ones(512, 2)[:, 1]
+    R.prefix_blocks(rows, okf)
+    ((ptr, okf_ptr, d),) = fake_card.calls
+    assert d == 4 and ptr % 16 == 0 and okf_ptr % 16 == 0
+
+
+def test_prefix_blocks_refuses_what_the_kernel_does_not_take(fake_card):
+    """On a tensor taken for a CUDA one, the wrapper raises on rows or an
+    okf that would reach the kernel off a 16-byte boundary (contiguous
+    views 4 bytes in) and on rows past 32-bit indexing, and launches
+    nothing."""
+    flat = torch.zeros(512 * 4 + 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        R.prefix_blocks(flat[1:513 * 4 - 3].view(512, 4))
+    with pytest.raises(ValueError, match="16-byte"):
+        R.prefix_blocks(flat[:2048].view(512, 4), flat[1:513])
+    huge = torch.zeros(1, 1).expand(1 << 22, 512)   # a view, no memory
+    with pytest.raises(ValueError, match="32 bits"):
+        R.prefix_blocks(huge)
+    assert fake_card.calls == []
 
 
 @pytest.mark.parametrize("m", [4096, 3000])
