@@ -37,6 +37,7 @@ from goi_tpu_torch.semantic.codebook import SemanticDecoder
 from goi_tpu_torch.utils.image import (compute_mask_ratio, save_image,
                                        turbo_colormap)
 from goi_tpu_torch.utils.pose import interpolate_poses
+from goi_tpu_torch.utils.profiling import span
 
 
 def _normed_codebook_features(decoder, lut, features):
@@ -61,40 +62,42 @@ def _frame(scene, cam, bg, gmask, decoder, lut, text, osh, *, cfg, mode,
 
     out = render(scene, cam, bg, cfg, scaling_modifier=scaling_modifier,
                  gaussian_mask=gmask)
-    if mode == "depth":
-        d = out["depth"][0]
-        d = (d - d.min()) / torch.clamp(d.max() - d.min(), min=1e-9)
-        return finish(torch.stack([d] * 3, -1))
-    if mode == "alpha":
-        return finish(torch.stack([out["alpha"][0]] * 3, -1))
-    img = out["render"].permute(1, 2, 0)
-    if branch == "none":
-        return finish(img)
-    s, h, w = out["semantics"].shape
-    normed = _normed_codebook_features(
-        decoder, lut, out["semantics"].reshape(s, -1).T)
-    if branch == "osh":
-        sim = torch.sigmoid(osh_predict(osh, normed))
-        thresh = 0.5
-    else:
-        sim = ape_similarity(normed, text, log_scale=log_scale)
-        thresh = sim_thresh
-    sim = torch.where(sim < thresh, torch.zeros_like(sim), sim)
-    bg_mask = sim == 0
-    # clip_color(thresh=0.7, coloring=True), inlined
-    if branch == "osh":
-        rel = torch.clamp(sim + 0.2, 0.1, 0.9)
-    else:
-        rel = torch.clamp((sim - 0.7 - 0.05) / (sim.max() - 0.7), 0.0, 1.0)
-    heat = turbo_colormap(rel)
-    heat = torch.where(bg_mask[:, None], torch.ones_like(heat), heat)
-    heat = torch.clamp(heat.reshape(h, w, 3), 0, 1)
-    if branch == "osh":
-        alpha = bg_mask.to(torch.float32).reshape(h, w, 1)
-    else:
-        alpha = 1.0
-    opa = alpha * 0.4
-    return finish(torch.clamp(heat * opa + img * (1 - opa), 0, 1))
+    with span("query.overlay"):
+        if mode == "depth":
+            d = out["depth"][0]
+            d = (d - d.min()) / torch.clamp(d.max() - d.min(), min=1e-9)
+            return finish(torch.stack([d] * 3, -1))
+        if mode == "alpha":
+            return finish(torch.stack([out["alpha"][0]] * 3, -1))
+        img = out["render"].permute(1, 2, 0)
+        if branch == "none":
+            return finish(img)
+        s, h, w = out["semantics"].shape
+        normed = _normed_codebook_features(
+            decoder, lut, out["semantics"].reshape(s, -1).T)
+        if branch == "osh":
+            sim = torch.sigmoid(osh_predict(osh, normed))
+            thresh = 0.5
+        else:
+            sim = ape_similarity(normed, text, log_scale=log_scale)
+            thresh = sim_thresh
+        sim = torch.where(sim < thresh, torch.zeros_like(sim), sim)
+        bg_mask = sim == 0
+        # clip_color(thresh=0.7, coloring=True), inlined
+        if branch == "osh":
+            rel = torch.clamp(sim + 0.2, 0.1, 0.9)
+        else:
+            rel = torch.clamp((sim - 0.7 - 0.05) / (sim.max() - 0.7), 0.0,
+                              1.0)
+        heat = turbo_colormap(rel)
+        heat = torch.where(bg_mask[:, None], torch.ones_like(heat), heat)
+        heat = torch.clamp(heat.reshape(h, w, 3), 0, 1)
+        if branch == "osh":
+            alpha = bg_mask.to(torch.float32).reshape(h, w, 1)
+        else:
+            alpha = 1.0
+        opa = alpha * 0.4
+        return finish(torch.clamp(heat * opa + img * (1 - opa), 0, 1))
 
 
 class QuerySession:
@@ -159,25 +162,27 @@ class QuerySession:
         """One viewer frame: render + optional similarity heat overlay
         (ref:gui/main.py:549-604). Returns (H, W, 3) float (uint8 with
         as_u8) on the host."""
-        gmask = None
-        if self.gs_index is not None:
-            gmask = torch.as_tensor(self.gs_index, device=self.device)
-        branch = "none"
-        text = osh = None
-        if mode == "image" and overlay:
-            if self.res_finetuned and self.osh is not None:
-                branch = "osh"
-                osh = self.osh
-            elif self.text_tokens is not None:
-                branch = "ape"
-                text = self.text_tokens
-        img = _frame(self.scene, cam.to(self.device), self.bg, gmask,
-                     self.decoder, self.lut, text, osh, cfg=self.raster_cfg,
-                     mode=mode, branch=branch,
-                     scaling_modifier=float(scaling_modifier),
-                     sim_thresh=self.sim_thresh,
-                     log_scale=float(self.log_scale), as_u8=as_u8)
-        return img.cpu().numpy()
+        with span("query.frame"):
+            gmask = None
+            if self.gs_index is not None:
+                gmask = torch.as_tensor(self.gs_index, device=self.device)
+            branch = "none"
+            text = osh = None
+            if mode == "image" and overlay:
+                if self.res_finetuned and self.osh is not None:
+                    branch = "osh"
+                    osh = self.osh
+                elif self.text_tokens is not None:
+                    branch = "ape"
+                    text = self.text_tokens
+            img = _frame(self.scene, cam.to(self.device), self.bg, gmask,
+                         self.decoder, self.lut, text, osh,
+                         cfg=self.raster_cfg, mode=mode, branch=branch,
+                         scaling_modifier=float(scaling_modifier),
+                         sim_thresh=self.sim_thresh,
+                         log_scale=float(self.log_scale), as_u8=as_u8)
+            with span("query.to_host"):
+                return img.cpu().numpy()
 
     # ---- OSH fine-tune (ref:gui/main.py:1673-1763) ----
     def finetune_with_res(self, cam, res_mask: np.ndarray,

@@ -31,6 +31,7 @@ from goi_tpu_torch.semantic.losses import distillation_loss
 from goi_tpu_torch.train.distill import (ANNEAL_STEP, DistillState,
                                          create_distill_state)
 from goi_tpu_torch.train.optim import OptimConfig, set_scheduled_lr
+from goi_tpu_torch.utils.profiling import span
 
 __all__ = ["stack_cameras", "shard_batch", "make_sharded_distill_step"]
 
@@ -74,37 +75,39 @@ def make_sharded_distill_step(cfg: OptimConfig, raster_cfg: RasterConfig,
 
     def step_fn(state: DistillState, cams: Camera, gts: torch.Tensor,
                 bg: torch.Tensor) -> Tuple[DistillState, dict]:
-        opts = [o for o in (state.opt_scene, state.opt_decoder,
-                            state.opt_lut) if o is not None]
-        for o in opts:
-            o.zero_grad(set_to_none=True)
-        views = unstack_cameras(cams)
-        anneal_t = 1.0 if state.step < ANNEAL_STEP else 2.0
-        terms = torch.zeros(len(TERMS), device=mesh.device)
-        counts = torch.zeros(2, dtype=torch.int64, device=mesh.device)
-        for cam, gt in zip(views, gts):
-            out = render_sharded(state.scene, cam, bg, raster_cfg, mesh)
-            s, h, w = out["semantics"].shape
-            loss, aux = distillation_loss(
-                state.decoder, state.lut, out["semantics"].reshape(s, h * w).T,
-                gt.reshape(gt.shape[0], -1).T, anneal_t)
-            (loss / len(views)).backward()
-            terms += torch.stack([aux[k].detach() for k in TERMS]) \
-                / len(views)
-            counts = torch.maximum(counts, torch.stack(
-                [out["num_slots"], out["num_instances"]]).long())
-        leaves = [p for p in state.scene.params().values()
-                  if p.requires_grad]
-        leaves += list(state.decoder.parameters()) + [state.lut]
-        _mean_over_data(leaves, terms, mesh)
-        counts = all_reduce_max(counts, mesh.group("data"))
-        set_scheduled_lr(state.opt_scene, state.step)
-        for o in opts:
-            o.step()
-        state.step += 1
-        aux = dict(zip(TERMS, terms))
-        aux.update(num_slots=counts[0], num_instances=counts[1])
-        return state, aux
+        with span("dist.step"):
+            opts = [o for o in (state.opt_scene, state.opt_decoder,
+                                state.opt_lut) if o is not None]
+            for o in opts:
+                o.zero_grad(set_to_none=True)
+            views = unstack_cameras(cams)
+            anneal_t = 1.0 if state.step < ANNEAL_STEP else 2.0
+            terms = torch.zeros(len(TERMS), device=mesh.device)
+            counts = torch.zeros(2, dtype=torch.int64, device=mesh.device)
+            for cam, gt in zip(views, gts):
+                out = render_sharded(state.scene, cam, bg, raster_cfg, mesh)
+                s, h, w = out["semantics"].shape
+                loss, aux = distillation_loss(
+                    state.decoder, state.lut,
+                    out["semantics"].reshape(s, h * w).T,
+                    gt.reshape(gt.shape[0], -1).T, anneal_t)
+                (loss / len(views)).backward()
+                terms += torch.stack([aux[k].detach() for k in TERMS]) \
+                    / len(views)
+                counts = torch.maximum(counts, torch.stack(
+                    [out["num_slots"], out["num_instances"]]).long())
+            leaves = [p for p in state.scene.params().values()
+                      if p.requires_grad]
+            leaves += list(state.decoder.parameters()) + [state.lut]
+            _mean_over_data(leaves, terms, mesh)
+            counts = all_reduce_max(counts, mesh.group("data"))
+            set_scheduled_lr(state.opt_scene, state.step)
+            for o in opts:
+                o.step()
+            state.step += 1
+            aux = dict(zip(TERMS, terms))
+            aux.update(num_slots=counts[0], num_instances=counts[1])
+            return state, aux
 
     return init_fn, step_fn
 
@@ -113,14 +116,16 @@ def _mean_over_data(leaves, terms: torch.Tensor, mesh: Mesh) -> None:
     """Average every leaf's gradient (a missing one counts as zero) and
     the loss terms over 'data', in one all-reduce."""
     n = mesh.shape["data"]
-    for p in leaves:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    flat = torch.cat([p.grad.reshape(-1) for p in leaves] + [terms])
-    dist.all_reduce(flat, group=mesh.group("data"))
-    flat /= n
-    off = 0
-    for p in leaves:
-        p.grad.copy_(flat[off:off + p.numel()].view_as(p))
-        off += p.numel()
-    terms.copy_(flat[off:])
+    with span("dist.mean_over_data"):
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in leaves] + [terms])
+        with span("dist.allreduce"):
+            dist.all_reduce(flat, group=mesh.group("data"))
+        flat /= n
+        off = 0
+        for p in leaves:
+            p.grad.copy_(flat[off:off + p.numel()].view_as(p))
+            off += p.numel()
+        terms.copy_(flat[off:])

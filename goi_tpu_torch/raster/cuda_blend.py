@@ -54,6 +54,7 @@ from goi_tpu_torch.raster.reduce import (reduce_chain, reduce_cumsum,
                                          reduce_scatter,
                                          reduce_scatter_serial, reduce_sorted)
 from goi_tpu_torch.raster.reference import ALPHA_CLAMP, T_EPS
+from goi_tpu_torch.utils.profiling import armed, count, span
 
 K = 256            # instances per chunk: the chunked layout's walk unit
 PIX = TILE * TILE
@@ -499,8 +500,9 @@ class _BlendCore(torch.autograd.Function):
     def backward(ctx, grad_raw):
         feat, starts, ends, raw, gid, perm, keys = ctx.saved_tensors
         rows = blend_bwd(feat, starts, ends, raw, grad_raw, ctx.grid_x)
-        acc = reduce_rows(rows, ctx.reduce, gid, ctx.n_gauss, perm, keys,
-                          ctx.dense, ctx.aligned)
+        with span("blend.reduce"):
+            acc = reduce_rows(rows, ctx.reduce, gid, ctx.n_gauss, perm,
+                              keys, ctx.dense, ctx.aligned)
         s = ctx.s_dim
         return (acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:9],
                 acc[:, 9:9 + s], acc[:, 9 + s],
@@ -538,7 +540,9 @@ def blend_tiles_cuda(sp: Splats, binning: Binning, bg: torch.Tensor, *,
     chunked binning ('chain' needs export_perm=True; `dense`, chain only,
     fuses its prefix and boundary read-out), 'scatter' | 'sorted' |
     'cumsum' on an aligned one ('sorted' and 'cumsum' need
-    export_perm=True)."""
+    export_perm=True). While armed, counts the forward's walked and
+    blended pairs (blend.walked, blend.blended: raw's per-pixel counts
+    summed in float64)."""
     perm, keys = reduce_inputs(sp, binning, reduce)
     if dense and reduce != "chain":
         raise ValueError("dense needs reduce='chain'")
@@ -547,6 +551,11 @@ def blend_tiles_cuda(sp: Splats, binning: Binning, bg: torch.Tensor, *,
                            sp.semantics, sp.depth, binning.point_list,
                            binning.tile_start, binning.tile_end, grid_x,
                            reduce, dense, binning.aligned, perm, keys)
+    if armed():
+        pairs = raw.detach()[..., 5 + s:7 + s].sum((0, 1),
+                                                   dtype=torch.float64)
+        count("blend.walked", pairs[0])
+        count("blend.blended", pairs[1])
     return composite(raw, bg, s)
 
 

@@ -36,6 +36,7 @@ from goi_tpu_torch.raster.cuda_blend import (blend_tiles_cuda, composite,
                                              reduce_rows)
 from goi_tpu_torch.raster.cuda_trace import trace_fwd, trace_fwd_plain
 from goi_tpu_torch.raster.preprocess import TILE, preprocess
+from goi_tpu_torch.utils.profiling import armed, count, span, span_backward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,15 +215,19 @@ def render(scene: GaussianScene, cam: Camera, bg_color,
                                 semantic_masks=semantic_masks,
                                 mean2d_offset=mean2d_offset)
     _check_config(config)
-    grid_x, grid_y = _grid(cam)
-    sp = preprocess(scene, cam, scaling_modifier=scaling_modifier,
-                    override_color=override_color,
-                    semantic_masks=semantic_masks)
-    if mean2d_offset is not None:
-        sp = dataclasses.replace(sp, mean2d=sp.mean2d + mean2d_offset)
-    tiles, binning = _bin_and_blend(sp, config, _effective_reduce(config),
-                                    bg_color, grid_x, grid_y)
-    out = _assemble_out(tiles, sp, binning, cam, grid_x, grid_y)
+    with span("render"):
+        grid_x, grid_y = _grid(cam)
+        with span("render.preprocess"):
+            sp = preprocess(scene, cam, scaling_modifier=scaling_modifier,
+                            override_color=override_color,
+                            semantic_masks=semantic_masks)
+        if mean2d_offset is not None:
+            sp = dataclasses.replace(sp, mean2d=sp.mean2d + mean2d_offset)
+        tiles, binning = _bin_and_blend(sp, config,
+                                        _effective_reduce(config), bg_color,
+                                        grid_x, grid_y)
+        out = _assemble_out(tiles, sp, binning, cam, grid_x, grid_y)
+        span_backward(out["semantics"], "render.backward")
     if config.debug and not bool(torch.isfinite(out["render"]).all()
                                  & torch.isfinite(out["semantics"]).all()):
         _dump_splats(sp)
@@ -267,16 +272,27 @@ def _check_config(config: RasterConfig) -> None:
 
 
 def _bin(sp, config: RasterConfig, grid_x: int, grid_y: int, reduce: str):
-    if config.layout == "aligned":
-        return bin_splats(
-            sp, grid_x=grid_x, grid_y=grid_y,
-            max_instances=config.max_instances, align=BLEND_K,
-            export_perm=reduce in ("sorted", "cumsum"), cull=config.cull,
-            binned_slots=config.max_binned)
-    return bin_splats_chunked(
-        sp, grid_x=grid_x, grid_y=grid_y,
-        max_instances=config.max_instances, chunk_k=BLEND_K,
-        cull=config.cull, export_perm=(reduce == "chain"))
+    """The binning of `config`'s layout; while armed, counts the sort's
+    length (binning.sorted_slots) and the instances the blend walks
+    (binning.kept: the tiles' ranges, the last tile's end in the chunked
+    layout)."""
+    with span("render.binning"):
+        if config.layout == "aligned":
+            binning = bin_splats(
+                sp, grid_x=grid_x, grid_y=grid_y,
+                max_instances=config.max_instances, align=BLEND_K,
+                export_perm=reduce in ("sorted", "cumsum"),
+                cull=config.cull, binned_slots=config.max_binned)
+        else:
+            binning = bin_splats_chunked(
+                sp, grid_x=grid_x, grid_y=grid_y,
+                max_instances=config.max_instances, chunk_k=BLEND_K,
+                cull=config.cull, export_perm=(reduce == "chain"))
+        if armed():
+            count("binning.sorted_slots", config.max_instances)
+            count("binning.kept",
+                  (binning.tile_end - binning.tile_start).sum())
+    return binning
 
 
 def _bin_and_blend(sp, config: RasterConfig, reduce: str, bg_color,

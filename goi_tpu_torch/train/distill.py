@@ -30,7 +30,7 @@ from goi_tpu_torch.train.optim import (OptimConfig, make_scene_optimizer,
                                        scene_learning_rates,
                                        set_scheduled_lr)
 from goi_tpu_torch.utils.logging import TensorBoardLogger
-from goi_tpu_torch.utils.profiling import StepTimer
+from goi_tpu_torch.utils.profiling import StepTimer, span
 
 ANNEAL_STEP = 1000   # anneal_t is 1 before this step, 2 from it on
 
@@ -57,8 +57,9 @@ def distill_loss(state: DistillState, cam: Camera,
     sem_flat = out["semantics"].reshape(s, h * w).T
     gt_flat = gt_features.reshape(gt_features.shape[0], -1).T
     anneal_t = 1.0 if state.step < ANNEAL_STEP else 2.0
-    loss, aux = distillation_loss(state.decoder, state.lut, sem_flat,
-                                  gt_flat, anneal_t)
+    with span("loss.forward"):
+        loss, aux = distillation_loss(state.decoder, state.lut, sem_flat,
+                                      gt_flat, anneal_t)
     return loss, dict(aux, num_slots=out["num_slots"],
                       num_instances=out["num_instances"])
 
@@ -92,17 +93,21 @@ def create_distill_state(
                    gt_features: torch.Tensor, bg: torch.Tensor,
                    raster_cfg: RasterConfig
                    ) -> Tuple[DistillState, Dict[str, torch.Tensor]]:
-        opts = [o for o in (state.opt_scene, state.opt_decoder,
-                            state.opt_lut) if o is not None]
-        for o in opts:
-            o.zero_grad(set_to_none=True)
-        loss, aux = distill_loss(state, cam, gt_features, bg, raster_cfg)
-        loss.backward()
-        set_scheduled_lr(state.opt_scene, state.step)
-        for o in opts:
-            o.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in aux.items()}
+        with span("distill.step"):
+            opts = [o for o in (state.opt_scene, state.opt_decoder,
+                                state.opt_lut) if o is not None]
+            for o in opts:
+                o.zero_grad(set_to_none=True)
+            loss, aux = distill_loss(state, cam, gt_features, bg,
+                                     raster_cfg)
+            with span("distill.backward"):
+                loss.backward()
+            with span("optim"):
+                set_scheduled_lr(state.opt_scene, state.step)
+                for o in opts:
+                    o.step()
+            state.step += 1
+            return state, {k: v.detach() for k, v in aux.items()}
 
     return state, train_step
 
