@@ -27,6 +27,11 @@ exits non-zero without the final result line:
    the block owners' sums (owner_sums, the prefix's read-out at the
    bounds plus each segment's whole blocks) bit-exact against their
    plain version in both read-out forms, beside torch.segment_reduce;
+   the preprocess kernel (csrc/preprocess.cu) bit for bit against its
+   plain version, the composition, in every Splats field at scannet's
+   1M Gaussians (the main-path scene and frame) and garden's 5.8M (the
+   m360-garden cell's scene and view), with its time in a run of calls,
+   its own device time, the composition's time and the bytes bound;
 4. [main] the query path: a seeded 1,000,000-Gaussian scene (SH degree
    3, 10 semantic channels), a 10->300 decoder and a 300x256 LUT, saved
    as the PLY + pickle + LUT.npy triplet and loaded back; QuerySession
@@ -216,7 +221,10 @@ N_TRACES = 6        # trace() calls on the main path, cycling the views
 MICRO_ITERS = 5     # steps per figure of the micro-benchmark
 KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "trace",
                   "prefix_boundary", "mono_rows", "density_grid",
-                  "owner_sums")
+                  "owner_sums", "preprocess")
+# the preprocess kernel's check: garden's Gaussian count (the
+# m360-garden cell), beside the main path's N_GAUSS (scannet's)
+GARDEN_GAUSS = 5_800_000
 # [widths]: semantic widths between and at the kernels' instances (S_MAX
 # = 64 the widest), past it in channel groups (65, 117 = the pallas
 # blend's widest, 128), lift widths past one warp's 32 lanes (127 =
@@ -511,6 +519,115 @@ def capture_backward_inputs(scene, cam, cfg, seed):
                    for k in ("semantics", "render"))
         loss.backward()
     return capture(run)
+
+
+def garden_scene(n, seed, device):
+    """The m360-garden cell's scene: positions N(0, (1.6, 0.5, 1.6)),
+    isotropic scales 0.004-0.016, opacity logit(0.1) + N(0, 1), SH
+    degree 3 with rest coefficients N(0, 0.05)."""
+    import torch
+    from goi_tpu_torch.core.scene import GaussianScene
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    scale = 0.004 + 0.012 * torch.rand(n, 1, generator=gen, device=device)
+    return GaussianScene(
+        xyz=rnd(n, 3) * torch.tensor([1.6, 0.5, 1.6], device=device),
+        features_dc=0.5 * rnd(n, 1, 3), features_rest=0.05 * rnd(n, 15, 3),
+        semantics=0.3 * rnd(n, SEM_DIM),
+        scaling=torch.log(scale).expand(n, 3).contiguous(),
+        rotation=rnd(n, 4), opacity=math.log(0.1 / 0.9) + rnd(n, 1),
+        valid=torch.ones(n, dtype=torch.bool, device=device),
+        active_sh_degree=3, max_sh_degree=3)
+
+
+def garden_cam(device):
+    """A view of the m360-garden cell: 1297x840, fovx 1.03, on the circle
+    of radius 4 at height 1.5, looking at the origin."""
+    from goi_tpu_torch.core.camera import Camera, focal2fov, fov2focal
+    fovy = focal2fov(fov2focal(1.03, 1297), 840)
+    return Camera.look_at([4.0 * math.sin(0.7), 1.5, -4.0 * math.cos(0.7)],
+                          [0, 0, 0], [0, 1, 0], 1.03, fovy, 1297, 840,
+                          device=device)
+
+
+def preprocess_bytes(scene) -> int:
+    """The preprocess kernel's bytes: each input row read once (xyz,
+    scaling, rotation, opacity, SH, valid), each output written once
+    (mean2d, depth, conic, opacity, colour, radius, two rects, tiles,
+    cell_sel in 4-byte words, valid in one byte)."""
+    rest = scene.features_rest.shape[1]
+    read = 4 * (3 + 3 + 4 + 1 + 3 + 3 * rest) + 1
+    written = 4 * (2 + 1 + 3 + 1 + 3 + 1 + 2 + 2 + 1 + 2) + 1
+    return scene.capacity * (read + written)
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype and shape, NaN at the same places, every other element
+    bit for bit."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32))
+
+
+def preprocess_phase() -> dict:
+    """The preprocess kernel against its plain version at scannet's 1M
+    Gaussians (the main-path scene, 1296x968) and garden's 5.8M (the
+    m360-garden cell's scene and view): every Splats field bit for bit;
+    ms: a call in a run of calls (dispatch included); kernel_ms: the
+    kernel's own device time (profiler); plain_ms: the composition's
+    median call; bound_ms: preprocess_bytes at PEAK_BYTES_PER_S. Returns
+    the kernels line's figures (garden's, and scannet's with _1m)."""
+    import dataclasses
+    import importlib
+    import torch
+    pre = importlib.import_module("goi_tpu_torch.raster.preprocess")
+    stats = {}
+    for label, n in (("1m", N_GAUSS), ("5.8m", GARDEN_GAUSS)):
+        if n == N_GAUSS:
+            scene = make_scene(n, seed=0, device="cuda")
+            cam = orbit_cams(WIDTH, HEIGHT, 1, "cuda")[0]
+        else:
+            scene = garden_scene(n, seed=0, device="cuda")
+            cam = garden_cam("cuda")
+        with torch.no_grad():
+            got = pre.preprocess(scene, cam)
+            want = pre.preprocess_plain(scene, cam)
+            bad = [f.name for f in dataclasses.fields(want)
+                   if not same_bits(getattr(got, f.name),
+                                    getattr(want, f.name))]
+            if bad:
+                raise AssertionError(f"[kernels] preprocess {label}: the "
+                                     f"kernel differs from its plain "
+                                     f"version in {bad}")
+            del got, want
+            ms = run_ms(lambda: pre.preprocess(scene, cam))
+            kernel_ms = device_ms(lambda: pre.preprocess(scene, cam),
+                                  "preprocess_kernel")
+            plain_ms = median_ms(lambda: pre.preprocess_plain(scene, cam),
+                                 iters=5)
+        bound_ms = preprocess_bytes(scene) / PEAK_BYTES_PER_S * 1e3
+        log(f"[kernels] preprocess {label} ({n} Gaussians, "
+            f"{cam.width}x{cam.height}): bit-identical to the composition "
+            f"in every field; {ms:.4f} ms a call in a run, kernel "
+            f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
+            f"composition {plain_ms:.3f} ms")
+        sfx = "" if n == GARDEN_GAUSS else "_" + label
+        stats.update({f"ms{sfx}": round(ms, 4),
+                      f"kernel_ms{sfx}": round(kernel_ms, 4),
+                      f"bound_ms{sfx}": round(bound_ms, 4),
+                      f"plain_ms{sfx}": round(plain_ms, 3)})
+        del scene
+        torch.cuda.empty_cache()
+    return stats
 
 
 def check_gather(table, base, m):
@@ -917,7 +1034,7 @@ def train_phase(scene, cams, cfg, stats):
         losses.append(float(aux["total"]))
     launches = {k: n for k, n in read_counts().items()
                 if k in ("gather", "blend", "blend_bwd", "prefix",
-                         "owner_sums")}
+                         "owner_sums", "preprocess")}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     p50, p95 = np.percentile(step_ms, [50, 95])
     log(f"[train] {N_STEPS} steps at {WIDTH}x{HEIGHT}, 1M Gaussians, "
@@ -932,6 +1049,9 @@ def train_phase(scene, cams, cfg, stats):
         raise AssertionError("the loss did not fall")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    if launches["preprocess"] != N_STEPS:
+        raise AssertionError(f"[train] {N_STEPS} steps launched preprocess "
+                             f"{launches['preprocess']} times, not once each")
     slots = int(aux["num_slots"])
     if slots > cfg.max_instances:
         raise AssertionError(f"num_slots {slots} > {cfg.max_instances}")
@@ -952,14 +1072,15 @@ def train_phase(scene, cams, cfg, stats):
             raise AssertionError("non-finite loss with dense_reduce")
     counts = read_counts()
     if counts["prefix_boundary"] != DENSE_STEPS or counts["prefix"] \
-            or counts["owner_sums"] != DENSE_STEPS:
+            or counts["owner_sums"] != DENSE_STEPS \
+            or counts["preprocess"] != DENSE_STEPS:
         raise AssertionError(f"dense_reduce steps launched {counts}")
     log(f"[train] {DENSE_STEPS} steps with dense_reduce=True: step p50 "
         f"{np.percentile(dense_ms, 50):.1f} ms, max {max(dense_ms):.1f} ms; "
         f"launches prefix_boundary={counts['prefix_boundary']} "
         f"owner_sums={counts['owner_sums']} prefix=0")
     launches["prefix_boundary"] = counts["prefix_boundary"]
-    for k in ("gather", "blend", "blend_bwd", "owner_sums"):
+    for k in ("gather", "blend", "blend_bwd", "owner_sums", "preprocess"):
         launches[k] += counts[k]
     return launches
 
@@ -1287,9 +1408,13 @@ def trace_phase(scene, cams, cfg, stats):
             outs.append(out)
     counts = read_counts()
     launches = {k: counts[k] for k in ("trace", "gather", "prefix",
-                                       "prefix_boundary", "owner_sums")}
+                                       "prefix_boundary", "owner_sums",
+                                       "preprocess")}
     if counts["blend"] or counts["blend_bwd"]:
         raise AssertionError(f"trace ran a blend kernel: {counts}")
+    if counts["preprocess"] != N_TRACES + 1:
+        raise AssertionError(f"{N_TRACES + 1} trace() calls launched "
+                             f"preprocess {counts['preprocess']} times")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
 
@@ -1467,6 +1592,12 @@ def dist1_phase(scene, cams, cfg):
         del want
         render_counts = read_counts()
         launched("[dist1] render_sharded", render_counts)
+        # the kernel for the three no-grad renders, the composition for
+        # the four whose geometry gradients are taken
+        if render_counts["preprocess"] != 3:
+            raise AssertionError(f"[dist1] render_sharded launched "
+                                 f"preprocess {render_counts['preprocess']}"
+                                 f" times, not 3")
 
         # one distillation step on the (1, 1) mesh against train_step
         maps = feature_maps(1, 21, WIDTH, HEIGHT, "cuda")
@@ -1485,6 +1616,10 @@ def dist1_phase(scene, cams, cfg):
         sstate, saux = step_fn(sstate, c_b, g_b, bg)
         step_counts = read_counts()
         launched("[dist1] sharded step", step_counts)
+        if step_counts["preprocess"] != 1:
+            raise AssertionError(f"[dist1] the sharded step launched "
+                                 f"preprocess {step_counts['preprocess']} "
+                                 f"times, not once")
         for k in ("lab", "sl", "sl1", "recc", "total"):
             if not math.isclose(float(saux[k]), float(aux[k]), rel_tol=1e-5):
                 raise AssertionError(f"[dist1] step {k}: {float(saux[k])} vs "
@@ -3838,6 +3973,7 @@ def main() -> int:
     check_blend_bwd(*seen["blend_bwd"], label="100k 512x512")
     check_prefix(*seen["prefix"], label="100k 512x512")
     del small, seen
+    preprocess_stats = preprocess_phase()
 
     scene = make_scene(N_GAUSS, seed=0, device="cuda")
     cams = orbit_cams(WIDTH, HEIGHT, N_VIEWS, "cuda")
@@ -3845,7 +3981,8 @@ def main() -> int:
     cfg = RasterConfig(max_instances=mi)
     log(f"[kernels] main-path budget max_instances={mi}")
     seen = capture_inputs(scene, cams[0], cfg)
-    stats = {"gather": check_gather(*seen["gather"]),
+    stats = {"preprocess": preprocess_stats,
+             "gather": check_gather(*seen["gather"]),
              "blend": check_blend(*seen["blend"],
                                   label=f"1M {WIDTH}x{HEIGHT}")}
     del seen
@@ -3897,14 +4034,18 @@ def main() -> int:
             f"num_instances={int(out['num_instances'])} num_slots={slots}"
             f" <= {cfg.max_instances}, max_tile_depth={depth}")
     counts = read_counts()
-    launches = {"gather": counts["gather"], "blend": counts["blend"]}
+    launches = {k: counts[k] for k in ("gather", "blend", "preprocess")}
     if any(n for k, n in counts.items() if k not in launches):
         raise AssertionError(f"the query path ran another kernel: {counts}")
+    if launches["preprocess"] != N_FRAMES + N_VIEWS:
+        raise AssertionError(f"{N_FRAMES} frames and {N_VIEWS} renders "
+                             f"launched preprocess {launches['preprocess']} "
+                             f"times, not once each")
     p50, p95 = np.percentile(frame_ms, [50, 95])
     log(f"[main] {N_FRAMES} query frames + {N_VIEWS} renders at "
         f"{WIDTH}x{HEIGHT}: frame p50 {p50:.1f} ms, p95 {p95:.1f} ms, "
         f"max {max(frame_ms):.1f} ms; launches gather={launches['gather']}"
-        f" blend={launches['blend']}")
+        f" blend={launches['blend']} preprocess={launches['preprocess']}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     profile(lambda: sess.render_view(cams[0]), "query frame")
@@ -4054,6 +4195,16 @@ def main() -> int:
                   "whole per-Gaussian sum this kernel completes",
              **stats["owner_sums"]),
     ]
+    kernels.append(dict(
+        name="preprocess", route="cuda",
+        source="goi_tpu_torch/raster/csrc/preprocess.cu",
+        replaces="none: goi_tpu/raster/preprocess.py, XLA-fused (no "
+                 "Pallas)",
+        launches=launches["preprocess"],
+        note="ms: a call in a run of calls; kernel_ms: the kernel's own "
+             "device time (profiler); plain_ms: the composition "
+             "(preprocess_plain); garden's 5.8M Gaussians, _1m scannet's",
+        **stats["preprocess"]))
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     log(f"[done] {time.time() - t_start:.1f} s")

@@ -41,13 +41,14 @@ def kernel_wrappers() -> dict:
     from goi_tpu_torch.raster.cuda_blend import blend_bwd, blend_fwd
     from goi_tpu_torch.raster.cuda_trace import trace_fwd
     from goi_tpu_torch.raster.gather import expand_gather, mono_rows
+    from goi_tpu_torch.raster.preprocess import preprocess_cuda
     from goi_tpu_torch.raster.reduce import (owner_sums, prefix_blocks,
                                              prefix_boundary)
     return {"gather": expand_gather, "blend": blend_fwd,
             "blend_bwd": blend_bwd, "prefix": prefix_blocks,
             "trace": trace_fwd, "prefix_boundary": prefix_boundary,
             "mono_rows": mono_rows, "density_grid": mixture_grid,
-            "owner_sums": owner_sums}
+            "owner_sums": owner_sums, "preprocess": preprocess_cuda}
 
 
 def launch_counts() -> dict:

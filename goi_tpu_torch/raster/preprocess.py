@@ -3,20 +3,39 @@
 Counterpart of goi_tpu/raster/preprocess.py, the vectorized form of
 preprocessCUDA (ref:cuda_rasterizer/forward.cu:154-256). Every Gaussian
 of the (capacity-padded) scene is computed; a validity mask replaces the
-CUDA early returns. The math runs over (N,) components, as the JAX
-version does, so both evaluate the same expressions in the same order.
+CUDA early returns.
+
+Two paths that share no logic, chosen by `preprocess` from what its
+inputs show:
+- `preprocess_cuda`: the hand-written kernel csrc/preprocess.cu, one
+  launch that reads each Gaussian once and writes every field but the
+  semantics, for CUDA tensors when no gradient has to flow through the
+  geometry (grad mode off, or none of the geometry, colour, covariance
+  or camera tensors requires grad);
+- `preprocess_plain`: the composition of (N,) PyTorch operations, as the
+  JAX version evaluates the same expressions in the same order. It is
+  the kernel's plain version (CPU tensors) and the differentiable path
+  that geometry training needs (autograd, as JAX autodiff there,
+  PARITY.md N5).
+On the card the two agree bit for bit in every field. While a profiler
+is active, the counters `preprocess.fused` and `preprocess.plain` add
+up the Gaussians each path takes on CUDA tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
 import torch
 
+from goi_tpu_torch.core.camera import _TENSOR_FIELDS as CAMERA_TENSORS
 from goi_tpu_torch.core.camera import Camera, ndc2pix
 from goi_tpu_torch.core.scene import GaussianScene
 from goi_tpu_torch.core.sh import C0, C1, C2, C3
+from goi_tpu_torch.raster import _nvcc
+from goi_tpu_torch.utils.profiling import count
 
 TILE = 16     # ref:cuda_rasterizer/config.h:16-17 BLOCK_X/BLOCK_Y
 NEAR_Z = 0.2  # frustum near cull (ref:cuda_rasterizer/auxiliary.h:154)
@@ -194,11 +213,13 @@ def _tile_floor(v, grid: int):
     return torch.clamp(torch.floor(v), 0, grid).to(torch.int32)
 
 
-def preprocess(scene: GaussianScene, cam: Camera, *,
-               scaling_modifier: float = 1.0,
-               override_color: Optional[torch.Tensor] = None,
-               cov3d_precomp: Optional[torch.Tensor] = None,
-               semantic_masks: Optional[torch.Tensor] = None) -> Splats:
+def preprocess_plain(scene: GaussianScene, cam: Camera, *,
+                     scaling_modifier: float = 1.0,
+                     override_color: Optional[torch.Tensor] = None,
+                     cov3d_precomp: Optional[torch.Tensor] = None,
+                     semantic_masks: Optional[torch.Tensor] = None
+                     ) -> Splats:
+    """The composition: every field over (N,) columns, differentiable."""
     grid_x = (cam.width + TILE - 1) // TILE
     grid_y = (cam.height + TILE - 1) // TILE
 
@@ -326,3 +347,164 @@ def preprocess(scene: GaussianScene, cam: Camera, *,
         valid=valid,
         cell_sel=cell_sel,
     )
+
+
+_SIGNATURES = {"goi_preprocess": (
+    [ctypes.c_void_p] * 25
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_float),
+       ctypes.c_void_p])}
+# the SH constants in the kernel's order: C0, C1, C2[0..4], C3[0..6]
+_SH = (C0, C1, *C2, *C3)
+MAX_REST = 15    # the kernel's widest features_rest: SH degree 3
+
+
+def _kernel_tensors(scene: GaussianScene, cam: Camera, override_color,
+                    cov3d_precomp) -> dict:
+    """The tensors the kernel reads, by name, each with its shape, in the
+    order of csrc/preprocess.cu's goi_preprocess."""
+    n = scene.xyz.shape[0]
+    rest = scene.features_rest
+    rest_rows = rest.shape[1] if rest.dim() == 3 else -1
+    return {"xyz": (scene.xyz, (n, 3)),
+            "scaling": (scene.scaling, (n, 3)),
+            "rotation": (scene.rotation, (n, 4)),
+            "opacity": (scene.opacity, (n, 1)),
+            "features_dc": (scene.features_dc, (n, 1, 3)),
+            "features_rest": (rest, (n, rest_rows, 3)),
+            "valid": (scene.valid, (n,)),
+            "cov3d_precomp": (cov3d_precomp, (n, 6)),
+            "override_color": (override_color, (n, 3)),
+            "world_view": (cam.world_view, (4, 4)),
+            "full_proj": (cam.full_proj, (4, 4)),
+            "camera_center": (cam.camera_center, (3,)),
+            "tan_fovx": (cam.tan_fovx, ()),
+            "tan_fovy": (cam.tan_fovy, ())}
+
+
+def _check_kernel_inputs(tensors: dict, scene: GaussianScene,
+                         cam: Camera, use_sh: bool) -> None:
+    """Raise on what the kernel does not take: a dtype, shape, layout or
+    device other than its own, an SH degree past its rows, a frame of no
+    pixels."""
+    for name, (t, shape) in tensors.items():
+        if t is None:
+            continue
+        want = torch.bool if name == "valid" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"preprocess kernel: {name} must be {want}, "
+                            f"got {t.dtype}")
+        if tuple(t.shape) != shape or min(shape, default=0) < 0:
+            raise ValueError(f"preprocess kernel: {name} of shape {shape} "
+                             f"expected, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"preprocess kernel: {name} must be "
+                             f"contiguous")
+    rest_rows = scene.features_rest.shape[1]
+    deg = scene.active_sh_degree
+    if not 0 <= deg <= 3 or rest_rows > MAX_REST or (
+            use_sh and (deg + 1) ** 2 - 1 > rest_rows):
+        raise ValueError(f"preprocess kernel: SH degree 0-3 within "
+                         f"features_rest's rows (at most {MAX_REST}) "
+                         f"expected, got degree {deg} and {rest_rows} rows")
+    if cam.width <= 0 or cam.height <= 0:
+        raise ValueError(f"preprocess kernel: a frame of pixels expected, "
+                         f"got {cam.width}x{cam.height}")
+    dev = scene.xyz.device
+    for name, (t, _) in tensors.items():
+        if t is not None and (not _nvcc.is_cuda(t) or t.device != dev):
+            raise ValueError(f"preprocess kernel: {name} must be on the "
+                             f"CUDA device of xyz ({dev}), got {t.device}")
+
+
+def preprocess_cuda(scene: GaussianScene, cam: Camera, *,
+                    scaling_modifier: float = 1.0,
+                    override_color: Optional[torch.Tensor] = None,
+                    cov3d_precomp: Optional[torch.Tensor] = None,
+                    semantic_masks: Optional[torch.Tensor] = None
+                    ) -> Splats:
+    """preprocess_plain's Splats from one launch of csrc/preprocess.cu,
+    bit for bit on the card; the semantics in PyTorch. Forward only: the
+    outputs carry no gradient to the geometry. Camera constants are read
+    from the camera's device tensors (no host synchronise)."""
+    tensors = _kernel_tensors(scene, cam, override_color, cov3d_precomp)
+    _check_kernel_inputs(tensors, scene, cam, override_color is None)
+    lib = _nvcc.library("preprocess", _SIGNATURES)
+    n = scene.xyz.shape[0]
+    dev = scene.xyz.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = Splats(
+        mean2d=empty(n, 2), depth=empty(n), conic=empty(n, 3),
+        opacity=empty(n), color=empty(n, 3),
+        semantics=scene.get_semantics(semantic_masks),
+        radius=empty(n, dtype=torch.int32),
+        rect_min=empty(n, 2, dtype=torch.int32),
+        rect_max=empty(n, 2, dtype=torch.int32),
+        tiles_touched=empty(n, dtype=torch.int32),
+        valid=empty(n, dtype=torch.bool), cell_sel=empty(n, 2))
+    # the C entry takes the inputs in _kernel_tensors' order, then the
+    # outputs in Splats' order
+    _nvcc.check(lib.goi_preprocess(
+        *(t.data_ptr() if t is not None else None
+          for t, _ in tensors.values()),
+        *(getattr(out, f.name).data_ptr() for f in dataclasses.fields(out)
+          if f.name != "semantics"),
+        n, cam.width, cam.height, scene.active_sh_degree,
+        scene.features_rest.shape[1], scaling_modifier,
+        (ctypes.c_float * len(_SH))(*_SH), _nvcc.stream()), "preprocess")
+    preprocess_cuda.launches += 1
+    return out
+
+
+preprocess_cuda.launches = 0
+
+
+def _geometry_needs_grad(scene: GaussianScene, cam: Camera, override_color,
+                         cov3d_precomp) -> bool:
+    """Whether a gradient may flow through the kernel's inputs: grad
+    mode on and one of them requires grad (the semantics do not count:
+    they stay outside the kernel)."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(t is not None and t.requires_grad for t, _ in
+               _kernel_tensors(scene, cam, override_color,
+                               cov3d_precomp).values())
+
+
+def _dense(scene: GaussianScene, cam: Camera):
+    """The scene and camera with contiguous tensors, the kernel's layout
+    (a tensor that already is one is kept, not copied)."""
+    scene = scene.replace(**{f: getattr(scene, f).contiguous() for f in (
+        "xyz", "scaling", "rotation", "opacity", "features_dc",
+        "features_rest", "valid")})
+    return scene, dataclasses.replace(cam, **{
+        f: getattr(cam, f).contiguous() for f in CAMERA_TENSORS})
+
+
+def preprocess(scene: GaussianScene, cam: Camera, *,
+               scaling_modifier: float = 1.0,
+               override_color: Optional[torch.Tensor] = None,
+               cov3d_precomp: Optional[torch.Tensor] = None,
+               semantic_masks: Optional[torch.Tensor] = None) -> Splats:
+    """Splats of `scene` seen by `cam`: the kernel for CUDA tensors when
+    no gradient has to flow through the geometry, else the composition
+    (module docstring)."""
+    kw = dict(scaling_modifier=scaling_modifier,
+              override_color=override_color, cov3d_precomp=cov3d_precomp,
+              semantic_masks=semantic_masks)
+    if not _nvcc.is_cuda(scene.xyz):
+        return preprocess_plain(scene, cam, **kw)
+    n = scene.xyz.shape[0]
+    if _geometry_needs_grad(scene, cam, override_color, cov3d_precomp):
+        count("preprocess.plain", n)
+        return preprocess_plain(scene, cam, **kw)
+    count("preprocess.fused", n)
+    scene, cam = _dense(scene, cam)
+    if override_color is not None:
+        kw["override_color"] = override_color.contiguous()
+    if cov3d_precomp is not None:
+        kw["cov3d_precomp"] = cov3d_precomp.contiguous()
+    return preprocess_cuda(scene, cam, **kw)

@@ -5,8 +5,9 @@ Counterpart of goi_tpu/raster/render.py: preprocess -> chunked binning
 (ref:gaussian_renderer/__init__.py:99-105) plus the budget counters.
 The frame runs on the device of the scene's tensors: the hand-written
 CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
-`render` is differentiable: torch autograd through preprocess (as the
-JAX package uses JAX autodiff there, PARITY.md N5), binning under
+`render` is differentiable: torch autograd through preprocess's
+composition where a gradient flows to the geometry (as the JAX package
+uses JAX autodiff there, PARITY.md N5; else its kernel), binning under
 no_grad, and the blend's own backward (raster/cuda_blend.py) with the
 reduce that `_effective_reduce` picks. `trace` lifts a 2D feature map
 onto the Gaussians through the fused blend + lift kernel

@@ -45,7 +45,11 @@ Spans (file, function):
     dist.mean_over_data  dist/shard.py _mean_over_data; its self time is
                          the gradients' cat, divide and copies back
       dist.allreduce     around its dist.all_reduce
-Counters (raster/render.py _bin; raster/cuda_blend.py blend_tiles_cuda):
+Counters (raster/render.py _bin; raster/cuda_blend.py blend_tiles_cuda;
+raster/preprocess.py preprocess):
+  preprocess.fused       the Gaussians preprocessed by the kernel
+  preprocess.plain       the Gaussians of CUDA tensors preprocessed by the
+                         composition (a gradient flows to the geometry)
   binning.sorted_slots   the sort's length (the instance budget)
   binning.kept           the instances the blend walks (the tiles' ranges)
   blend.walked           the forward's walked pairs (raw's per-pixel

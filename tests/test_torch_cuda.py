@@ -16,9 +16,14 @@ the forward's 5e-5, its hit counts and the plain version's exactly (both
 multiply the transmittance in the same order), its lifted features at
 tests/test_trace.py's 1e-4 (sums of up to 256 pixels in another order);
 the fused prefix-boundary reduce, the block prefix against its
-read-out, the block owners' sums (owner_sums), the expansion gathers and
-the mono row gather bit for bit.
+read-out, the block owners' sums (owner_sums), the expansion gathers,
+the mono row gather and the preprocess kernel (every Splats field, NaN
+at the same places) bit for bit.
 """
+
+import dataclasses
+import importlib
+import math
 
 import numpy as np
 import pytest
@@ -40,6 +45,7 @@ from goi_tpu_torch.raster.render import RasterConfig, render, trace
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
 from goi_tpu_torch.train.distill import create_distill_state, distill_loss
 from goi_tpu_torch.train.optim import OptimConfig
+from goi_tpu_torch.utils import profiling
 # by its basename (pytest puts tests/ on the path): a machine may have
 # another package named `tests` installed
 from test_torch_block_cull import ADVERSARIAL, REGION, _adversarial
@@ -1214,3 +1220,245 @@ def test_edit_step_on_card_matches_cpu(cuda, monkeypatch):
         if k != "semantics":
             assert peak > 0, k
         assert torch.allclose(got, want, rtol=2e-3, atol=2e-4 * peak), k
+
+
+# the module (the package's raster namespace exports the function)
+pre = importlib.import_module("goi_tpu_torch.raster.preprocess")
+
+
+def _assert_splats_bit_identical(got, want):
+    """Every field: NaN at the same places, every other element bit for
+    bit (chip_smoke.same_bits)."""
+    import chip_smoke
+    for f in dataclasses.fields(want):
+        assert chip_smoke.same_bits(getattr(got, f.name),
+                                    getattr(want, f.name)), f.name
+
+
+def _unaligned(t):
+    """A contiguous copy of t 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _hard_scene(n, deg, max_deg, seed, cam):
+    """n Gaussians before `cam` with the cases the kernel must keep: rows
+    behind and across the near plane, rectangles past 3x3 and radii past
+    the frame, Gaussians outside the frame reaching into it, nearly
+    rank-1 covariances (det rounds to 0), centres on the frame's edges,
+    zero quaternions, invalid rows, NaN and inf parameters, opacities
+    below 1/255."""
+    device = cam.world_view.device
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    def uni(*s):
+        return torch.rand(s, generator=gen, device=device)
+
+    xyz = rnd(n, 3)
+    scaling = torch.log(0.005 + 0.05 * uni(n, 3))
+    rotation = rnd(n, 4)
+    opacity = 3.0 * rnd(n, 1)
+    k = n // 10
+    c2w = torch.linalg.inv(cam.world_view)
+
+    def world(pv):
+        return (torch.cat([pv, torch.ones_like(pv[:, :1])], 1) @ c2w.T)[:, :3]
+
+    xyz[:k] = world(torch.stack([0.3 * rnd(k), 0.3 * rnd(k),
+                                 1.1 * uni(k) - 0.5], 1))
+    scaling[k:2 * k] = torch.log(0.1 + 1.4 * uni(k, 3))
+    xyz[2 * k:3 * k, 0] = 6.0 * (2 * uni(k) - 1)
+    scaling[2 * k:3 * k] = torch.log(0.01 + 2.0 * uni(k, 3))
+    big = 10.0 ** (1 + 4 * uni(k))
+    scaling[3 * k:4 * k] = torch.stack(
+        [torch.log(big), torch.full_like(big, -14.0),
+         torch.full_like(big, -14.0)], 1)
+    z = 1.0 + 6.0 * uni(k)
+    on_x = uni(k) < 0.5
+    sx = torch.where(uni(k) < 0.5, -1.0, 1.0)
+    sy = torch.where(uni(k) < 0.5, -1.0, 1.0)
+    vx = torch.where(on_x, sx, 2 * uni(k) - 1) * z * cam.tan_fovx
+    vy = torch.where(on_x, 2 * uni(k) - 1, sy) * z * cam.tan_fovy
+    xyz[4 * k:5 * k] = world(torch.stack([vx, vy, z], 1))
+    rotation[5 * k:5 * k + 8] = 0.0
+    xyz[7] = math.nan
+    scaling[8, 1] = math.inf
+    rotation[9, 2] = math.nan
+    opacity[10] = math.nan
+    n_rest = (max_deg + 1) ** 2 - 1
+    rest = 0.5 * rnd(n, n_rest, 3)
+    if n_rest:
+        rest[11, -1, 0] = math.nan
+    return GaussianScene(
+        xyz=xyz.contiguous(), features_dc=0.5 * rnd(n, 1, 3),
+        features_rest=rest, semantics=rnd(n, 10),
+        scaling=scaling.contiguous(), rotation=rotation, opacity=opacity,
+        valid=uni(n) > 0.1, active_sh_degree=deg, max_sh_degree=max_deg)
+
+
+PREPROCESS_OPTIONS = ("none", "override", "cov3d", "modifier", "masks",
+                      "unaligned", "unaligned_cov3d")
+
+
+def _preprocess_case(option, scene, seed):
+    """(scene, keyword arguments) of one option of preprocess."""
+    n = scene.capacity
+    gen = torch.Generator(device=scene.device).manual_seed(seed)
+    cov = 1e-3 * torch.rand((n, 6), generator=gen, device=scene.device)
+    cov[:50] = 0.0
+    kw = {}
+    if option == "override":
+        kw["override_color"] = torch.rand((n, 3), generator=gen,
+                                          device=scene.device)
+    elif option in ("cov3d", "unaligned_cov3d"):
+        kw["cov3d_precomp"] = (cov if option == "cov3d"
+                               else _unaligned(cov))
+    elif option == "modifier":
+        kw["scaling_modifier"] = 0.7
+    elif option == "masks":
+        kw["semantic_masks"] = (torch.rand(n, generator=gen,
+                                           device=scene.device) > 0.5
+                                ).float()
+    elif option == "unaligned":
+        scene = scene.replace(rotation=_unaligned(scene.rotation),
+                              features_rest=_unaligned(scene.features_rest))
+    return scene, kw
+
+
+@pytest.mark.parametrize("option", PREPROCESS_OPTIONS)
+@pytest.mark.parametrize("deg,max_deg", [(0, 0), (0, 3), (1, 1), (1, 3),
+                                         (2, 3), (3, 3)])
+def test_preprocess_kernel_bit_identical(cuda, deg, max_deg, option):
+    cam = _cam(cuda)
+    scene = _hard_scene(20_011, deg, max_deg, 10 * deg + max_deg, cam)
+    scene, kw = _preprocess_case(option, scene, deg)
+    before = pre.preprocess_cuda.launches
+    got = preprocess(scene, cam, **kw)
+    assert pre.preprocess_cuda.launches == before + 1
+    want = pre.preprocess_plain(scene, cam, **kw)
+    _assert_splats_bit_identical(got, want)
+    # the cases are all there (cov3d_precomp's covariances are small)
+    width = want.rect_max - want.rect_min
+    assert bool(want.valid.any() & (scene.valid & ~want.valid).any())
+    assert bool((want.cell_sel[:, 0] >= 0).any())
+    assert bool((want.depth < pre.NEAR_Z).any())
+    assert bool(torch.isnan(want.mean2d).any())
+    if "cov3d" not in option:
+        assert bool((width > 3).any() & (want.radius > cam.width).any())
+
+
+def test_preprocess_kernel_meets_det_zero(cuda):
+    """The hard scene holds rows whose 2D covariance has det == 0 (the
+    kernel's det_ok branch), and they agree."""
+    cam = _cam(cuda)
+    scene = _hard_scene(20_011, 3, 3, 5, cam)
+    x, y, z = scene.xyz.unbind(1)
+    v = cam.world_view
+    in_front = v[2, 0] * x + v[2, 1] * y + v[2, 2] * z + v[2, 3] > pre.NEAR_Z
+    cxx, cxy, cyy = pre._cov2d_scalar(
+        x, y, z, pre._cov3d_scalar(scene.scaling, scene.rotation), cam,
+        in_front)
+    zero = (cxx * cyy - cxy * cxy == 0.0) & in_front
+    assert int(zero.sum()) > 10
+    got = preprocess(scene, cam)
+    want = pre.preprocess_plain(scene, cam)
+    _assert_splats_bit_identical(got, want)
+    assert not bool(want.valid[zero].any())
+
+
+def test_preprocess_kernel_bit_identical_at_garden_scale(cuda):
+    import chip_smoke
+    scene = chip_smoke.garden_scene(chip_smoke.GARDEN_GAUSS, 0, cuda)
+    cam = chip_smoke.garden_cam(cuda)
+    with torch.no_grad():
+        got = preprocess(scene, cam)
+        want = pre.preprocess_plain(scene, cam)
+    _assert_splats_bit_identical(got, want)
+    assert int(want.valid.sum()) > 1_000_000
+
+
+def _distill_parts(device, n=20_000):
+    """An anisotropic scene (every geometry gradient nonzero), a decoder,
+    a LUT and a 32-channel map at _cam's 160x120."""
+    gen = torch.Generator().manual_seed(4)
+    scene = _scene(n, 10, 11, device).replace(
+        rotation=torch.randn((n, 4), generator=gen).to(device),
+        scaling=torch.log(0.01 + 0.04 * torch.rand((n, 3), generator=gen)
+                          ).to(device))
+    decoder = SemanticDecoder.create(gen, dim_in=10, dim_out=12,
+                                     device="cpu").to(device)
+    lut = torch.randn((12, 32), generator=gen).to(device)
+    gt = torch.randn((32, 120, 160), generator=gen).to(device)
+    return scene, decoder, lut, gt
+
+
+def _armed(fn):
+    """Run fn under a profiler (the registry armed); the counters."""
+    from torch.profiler import ProfilerActivity, profile
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    return counters
+
+
+def test_train_step_and_viewer_frame_launch_preprocess_once(cuda):
+    from goi_tpu_torch.app.session import QuerySession
+    scene, decoder, lut, gt = _distill_parts(cuda)
+    cam = _cam(cuda)
+    cfg = RasterConfig(max_instances=1 << 17)
+    bg = torch.zeros(3, device=cuda)
+    state, step = create_distill_state(scene, decoder, lut, OptimConfig())
+    step(state, cam, gt, bg, cfg)
+    sess = QuerySession(scene, decoder, lut, cfg, device=cuda)
+    sess.set_text(lut[1])
+    sess.render_view(cam)
+    for run in (lambda: step(state, cam, gt, bg, cfg),
+                lambda: sess.render_view(cam)):
+        before = pre.preprocess_cuda.launches
+        counters = _armed(run)
+        assert pre.preprocess_cuda.launches == before + 1
+        assert counters["preprocess.fused"] == scene.capacity
+        assert "preprocess.plain" not in counters
+
+
+def test_geometry_finetune_keeps_the_composition(cuda, monkeypatch):
+    """A distillation step that trains the geometry runs the composition
+    (no kernel launch, counted as preprocess.plain) and gives the
+    gradients the composition gives when called directly."""
+    render_mod = importlib.import_module("goi_tpu_torch.raster.render")
+    scene, decoder, lut, gt = _distill_parts(cuda)
+    cam = _cam(cuda)
+    cfg = RasterConfig(max_instances=1 << 17)
+    bg = torch.zeros(3, device=cuda)
+    ocfg = OptimConfig(position_finetune=True, feature_finetune=True,
+                       opacity_finetune=True, scaling_finetune=True,
+                       rotation_finetune=True)
+
+    def grads():
+        state, _ = create_distill_state(scene, decoder, lut, ocfg)
+        loss, _ = distill_loss(state, cam, gt, bg, cfg)
+        loss.backward()
+        return {k: v.grad for k, v in state.scene.params().items()}
+
+    before = pre.preprocess_cuda.launches
+    got = {}
+    counters = _armed(lambda: got.update(grads()))
+    assert pre.preprocess_cuda.launches == before
+    assert counters["preprocess.plain"] == scene.capacity
+    assert "preprocess.fused" not in counters
+    monkeypatch.setattr(render_mod, "preprocess", pre.preprocess_plain)
+    want = grads()
+    assert set(got) == set(want) == set(scene.params())
+    for k in want:
+        assert want[k] is not None and torch.equal(got[k], want[k]), k
+    # the loss reads the semantic map: the colour's coefficients get a
+    # zero gradient, everything that places a Gaussian a nonzero one
+    for k in ("xyz", "scaling", "rotation", "opacity", "semantics"):
+        assert bool(want[k].abs().sum() > 0), k
