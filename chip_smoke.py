@@ -3599,8 +3599,9 @@ def towers_phase():
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[towers] {smi}: prompt {prompt_ms:.2f} ms (tokens "
             f"{tok_ms:.3f} ms, bigE tower + aligner), GroundingDINO "
-            f"{dino_ms:.1f} ms at {GDINO_SWINT.img_size}x"
-            f"{GDINO_SWINT.img_size} with a {GDINO_SWINT.text_pad}-token "
+            f"{dino_ms:.1f} ms at {'x'.join(map(str, det.input_hw(h, w)))} "
+            f"(the published resize of the {h}x{w} view) with a "
+            f"{GDINO_SWINT.text_pad}-token "
             f"caption and {GDINO_SWINT.num_queries} queries, "
             f"ms_deform_attn_core {core_ms:.3f} ms (encoder layer 0: "
             f"{loc.shape[1]} queries, levels {list(shapes)}), SAM set_image "

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from goi_tpu_torch.query._nn import linear
+from goi_tpu_torch.utils.profiling import armed, count, span
 
 
 def bilinear_sample(value: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
@@ -69,21 +70,26 @@ def ms_deform_attn_core(
     Returns (B, Q, n_heads * d_head)."""
     b, _, n_heads, d = value.shape
     q = sampling_locations.shape[1]
-    out = torch.zeros((b * n_heads, q, d), dtype=value.dtype,
-                      device=value.device)
-    start = 0
-    for lvl, (hh, ww) in enumerate(spatial_shapes):
-        v = value[:, start:start + hh * ww]            # (B, HW, h, d)
-        start += hh * ww
-        v = v.transpose(1, 2).reshape(b * n_heads, hh, ww, d)
-        loc = sampling_locations[:, :, :, lvl]         # (B, Q, h, P, 2)
-        p = loc.shape[3]
-        loc = loc.transpose(1, 2).reshape(b * n_heads, q, p, 2)
-        wgt = attention_weights[:, :, :, lvl].transpose(1, 2) \
-            .reshape(b * n_heads, q, p, 1)
-        out = out + (bilinear_sample(v, loc) * wgt).sum(2)
-    return out.reshape(b, n_heads, q, d).transpose(1, 2) \
-        .reshape(b, q, n_heads * d)
+    with span("deform_attn"):
+        if armed():
+            count("deform.samples",
+                  b * q * n_heads * len(spatial_shapes)
+                  * sampling_locations.shape[4])
+        out = torch.zeros((b * n_heads, q, d), dtype=value.dtype,
+                          device=value.device)
+        start = 0
+        for lvl, (hh, ww) in enumerate(spatial_shapes):
+            v = value[:, start:start + hh * ww]            # (B, HW, h, d)
+            start += hh * ww
+            v = v.transpose(1, 2).reshape(b * n_heads, hh, ww, d)
+            loc = sampling_locations[:, :, :, lvl]         # (B, Q, h, P, 2)
+            p = loc.shape[3]
+            loc = loc.transpose(1, 2).reshape(b * n_heads, q, p, 2)
+            wgt = attention_weights[:, :, :, lvl].transpose(1, 2) \
+                .reshape(b * n_heads, q, p, 1)
+            out = out + (bilinear_sample(v, loc) * wgt).sum(2)
+        return out.reshape(b, n_heads, q, d).transpose(1, 2) \
+            .reshape(b, q, n_heads * d)
 
 
 def sampling_locations(ref_points: torch.Tensor, off: torch.Tensor,

@@ -20,16 +20,20 @@ models/GroundingDINO/{groundingdino,transformer,fuse_modules}.py):
 `GroundingDINO`'s state_dict keys are the official
 groundingdino_swint_ogc.pth names, so `load_groundingdino_params` is a
 torch.load, a "module." strip and a drop of the buffers and aliases the
-model rebuilds. As in the JAX package the image is resized to a fixed
-square and the text padded to a fixed length; the boxes are normalized
-cxcywh, so the square resize maps back to the frame exactly.
+model rebuilds. The image is resized as the published inference
+transform resizes it (`input_hw`: the short side to 800 unless the long
+side would pass 1333), keeping its aspect ratio, so the level shapes,
+position embeddings, reference points and proposals follow the frame's
+(h, w); the JAX package squashes to a fixed square instead. The text is
+padded to a fixed length. The boxes are normalized cxcywh of the
+unpadded image, so they map back to the frame exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +50,7 @@ from goi_tpu_torch.query.deform_attn import MSDeformAttn
 from goi_tpu_torch.query.swin import (SWIN_T, SWIN_TINY_TEST, SwinBackbone,
                                       SwinConfig, swin_param_shapes)
 from goi_tpu_torch.utils.image import resize_linear
+from goi_tpu_torch.utils.profiling import armed, count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +64,8 @@ class GroundingConfig:
     num_queries: int = 900
     max_text_len: int = 256
     text_pad: int = 64          # fixed tokenized-caption length
-    img_size: int = 800         # fixed square input
+    img_size: int = 800         # the input's short side ...
+    max_size: int = 1333        # ... unless the long side passes this
     pe_temperature: float = 20.0  # ref:config pe_temperatureH/W
     swin: SwinConfig = SWIN_T
     bert: BertConfig = BERT_BASE
@@ -75,6 +81,22 @@ GDINO_TINY_TEST = GroundingConfig(
     num_queries=20, max_text_len=40, text_pad=16, img_size=64,
     swin=SWIN_TINY_TEST, bert=BERT_TINY_TEST)
 EPS = 1e-5   # torch nn.LayerNorm's default
+
+
+def input_hw(h: int, w: int, size: int, max_size: int) -> Tuple[int, int]:
+    """(height, width) the published inference resize gives an h x w
+    image, RandomResize([size], max_size) (ref:groundingdino/datasets/
+    transforms.py get_size_with_aspect_ratio): the short side to `size`,
+    unless the long side would then pass `max_size`, when the short side
+    shrinks so that the long one is about `max_size`."""
+    lo, hi = float(min(h, w)), float(max(h, w))
+    if hi / lo * size > max_size:
+        size = int(round(max_size * lo / hi))
+    if (w <= h and w == size) or (h <= w and h == size):
+        return h, w
+    if w < h:
+        return int(size * h / w), size
+    return size, int(size * w / h)
 
 
 # ---------------------------------------------------------------------------
@@ -330,12 +352,13 @@ class GroundingDINO(nn.Module):
 
     def forward(self, image, input_ids, text_attn_3d, position_ids,
                 text_pad_mask) -> dict:
-        """image (B, 3, S, S) ImageNet-normalized; input_ids (B, L);
+        """image (B, 3, H, W) ImageNet-normalized; input_ids (B, L);
         text_attn_3d (B, L, L) bool sub-sentence mask; position_ids
         (B, L); text_pad_mask (B, L) True = padding."""
         enc = self.encode(image, input_ids, text_attn_3d, position_ids,
                           text_pad_mask)
-        return self.decode(enc, self.select(enc))
+        with span("dino.decoder"):
+            return self.decode(enc, self.select(enc))
 
     def encode(self, image, input_ids, text_attn_3d, position_ids,
                text_pad_mask) -> dict:
@@ -344,36 +367,42 @@ class GroundingDINO(nn.Module):
         cfg, t = self.cfg, self.transformer
         b, e = image.shape[0], cfg.d_model
         dev = image.device
-        feats = self.backbone[0](image)
-        txt = self.feat_map(self.bert(input_ids, text_attn_3d,
-                                      position_ids))
-        srcs = [proj(f) for proj, f in zip(self.input_proj, feats)]
-        srcs.append(self.input_proj[-1](feats[-1]))
-        shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
-        src_flat = torch.cat([s.reshape(b, e, -1).transpose(1, 2)
-                              for s in srcs], 1)
-        pos_flat = torch.cat([
-            torch.as_tensor(sine_pos_embed_hw(h, wd, e // 2,
-                                              cfg.pe_temperature),
-                            device=dev)[None] + t.level_embed[lv][None, None]
-            for lv, (h, wd) in enumerate(shapes)], 1).expand_as(src_flat)
+        with span("dino.backbone"):
+            feats = self.backbone[0](image)
+            srcs = [proj(f) for proj, f in zip(self.input_proj, feats)]
+            srcs.append(self.input_proj[-1](feats[-1]))
+        with span("dino.text"):
+            txt = self.feat_map(self.bert(input_ids, text_attn_3d,
+                                          position_ids))
+        with span("dino.encoder"):
+            shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
+            if armed():
+                count("dino.image_tokens", sum(h * wd for h, wd in shapes))
+            src_flat = torch.cat([s.reshape(b, e, -1).transpose(1, 2)
+                                  for s in srcs], 1)
+            pos_flat = torch.cat([
+                torch.as_tensor(sine_pos_embed_hw(h, wd, e // 2,
+                                                  cfg.pe_temperature),
+                                device=dev)[None]
+                + t.level_embed[lv][None, None]
+                for lv, (h, wd) in enumerate(shapes)], 1).expand_as(src_flat)
 
-        # reference points: per-location normalized centres, one per
-        # level (valid_ratios == 1, no padding)
-        refs = np.concatenate([
-            np.stack(np.meshgrid((np.arange(wd) + 0.5) / wd,
-                                 (np.arange(h) + 0.5) / h,
-                                 indexing="xy"), -1).reshape(-1, 2)
-            for (h, wd) in shapes], 0).astype(np.float32)
-        enc_ref = torch.as_tensor(refs, device=dev)[None, :, None].expand(
-            b, refs.shape[0], len(shapes), 2)
-        pos_text = _sine_embed_1d(position_ids.float(), e)
-        mem, mem_text = src_flat, txt
-        for fl, tl, el in zip(t.encoder.fusion_layers, t.encoder.text_layers,
-                              t.encoder.layers):
-            mem, mem_text = fl(mem, mem_text, text_pad_mask)
-            mem_text = tl(mem_text, text_attn_3d, pos_text)
-            mem = el(mem, pos_flat, enc_ref, shapes)
+            # reference points: per-location normalized centres, one per
+            # level (valid_ratios == 1, no padding)
+            refs = np.concatenate([
+                np.stack(np.meshgrid((np.arange(wd) + 0.5) / wd,
+                                     (np.arange(h) + 0.5) / h,
+                                     indexing="xy"), -1).reshape(-1, 2)
+                for (h, wd) in shapes], 0).astype(np.float32)
+            enc_ref = torch.as_tensor(refs, device=dev)[None, :, None] \
+                .expand(b, refs.shape[0], len(shapes), 2)
+            pos_text = _sine_embed_1d(position_ids.float(), e)
+            mem, mem_text = src_flat, txt
+            for fl, tl, el in zip(t.encoder.fusion_layers,
+                                  t.encoder.text_layers, t.encoder.layers):
+                mem, mem_text = fl(mem, mem_text, text_pad_mask)
+                mem_text = tl(mem_text, text_attn_3d, pos_text)
+                mem = el(mem, pos_flat, enc_ref, shapes)
         return {"memory": mem, "memory_text": mem_text, "shapes": shapes,
                 "text_pad_mask": text_pad_mask}
 
@@ -633,17 +662,26 @@ class GroundingDINOTorch:
         pad_mask[:, :n] = False
         return ids_np, attn_full, pos_full, pad_mask, ids
 
+    def input_hw(self, h: int, w: int) -> Tuple[int, int]:
+        """The model's input (height, width) for an h x w image."""
+        return input_hw(h, w, self.cfg.img_size, self.cfg.max_size)
+
     def inputs(self, image: np.ndarray, caption: str):
-        """The model's inputs on its device, and the caption's ids."""
-        s, dev = self.cfg.img_size, self.device
-        img = resize_linear(torch.as_tensor(image, dtype=torch.float32,
-                                            device=dev), (s, s, 3))
-        img = (img - torch.as_tensor(IMAGENET_MEAN, device=dev)) \
-            / torch.as_tensor(IMAGENET_STD, device=dev)
-        ids_np, attn, pos, pad_mask, ids = self._prep_text(caption)
-        args = [img.permute(2, 0, 1)[None]] + [
-            torch.as_tensor(a, device=dev)
-            for a in (ids_np, attn, pos, pad_mask)]
+        """The model's inputs on its device, and the caption's ids: the
+        image resized by `input_hw` (resize_linear) and ImageNet-
+        normalized, the caption tokenized and padded to text_pad."""
+        dev = self.device
+        with span("dino.backbone"):
+            hw = self.input_hw(*image.shape[:2])
+            img = resize_linear(torch.as_tensor(image, dtype=torch.float32,
+                                                device=dev), hw + (3,))
+            img = (img - torch.as_tensor(IMAGENET_MEAN, device=dev)) \
+                / torch.as_tensor(IMAGENET_STD, device=dev)
+        with span("res.host"):
+            ids_np, attn, pos, pad_mask, ids = self._prep_text(caption)
+            args = [img.permute(2, 0, 1)[None]] + [
+                torch.as_tensor(a, device=dev)
+                for a in (ids_np, attn, pos, pad_mask)]
         return args, ids
 
     @torch.inference_mode()
@@ -653,15 +691,17 @@ class GroundingDINOTorch:
         normalized, scores (n,), phrases list[str])."""
         args, ids = self.inputs(image, caption)
         out = self.model(*args)
-        raw = out["pred_logits"][0].float().cpu().numpy()
-        with np.errstate(over="ignore"):
-            logits = 1.0 / (1.0 + np.exp(-raw))  # -inf pad -> 0
-        boxes = out["pred_boxes"][0].float().cpu().numpy()
-        scores = logits.max(-1)
-        keep = scores > box_threshold
-        phrases: List[str] = []
-        for row in logits[keep]:
-            posmap = row[:len(ids)] > text_threshold
-            tok = [ids[i] for i in np.nonzero(posmap)[0]]
-            phrases.append(self.tokenizer.decode(tok))
+        with span("dino.decoder"):
+            raw = out["pred_logits"][0].float().cpu().numpy()
+            boxes = out["pred_boxes"][0].float().cpu().numpy()
+        with span("res.host"):
+            with np.errstate(over="ignore"):
+                logits = 1.0 / (1.0 + np.exp(-raw))  # -inf pad -> 0
+            scores = logits.max(-1)
+            keep = scores > box_threshold
+            phrases: List[str] = []
+            for row in logits[keep]:
+                posmap = row[:len(ids)] > text_threshold
+                tok = [ids[i] for i in np.nonzero(posmap)[0]]
+                phrases.append(self.tokenizer.decode(tok))
         return boxes[keep], scores[keep].astype(np.float32), phrases

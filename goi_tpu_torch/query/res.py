@@ -24,6 +24,8 @@ from typing import Optional, Protocol
 
 import numpy as np
 
+from goi_tpu_torch.utils.profiling import count, span
+
 
 class RESProvider(Protocol):
     def predict_mask(self, image: np.ndarray, prompt: str,
@@ -92,29 +94,35 @@ class TorchRESProvider:
         self.text_threshold = text_threshold
 
     def predict_mask(self, image, prompt, image_name=""):
-        h, w = image.shape[:2]
-        boxes, scores, phrases = self.dino.predict(
-            image, prompt, self.box_threshold, self.text_threshold)
-        if len(boxes) == 0:
-            return None
-        # cxcywh normalized -> xyxy pixels (ref:res_model.py:291-294)
-        b = np.asarray(boxes) * np.asarray([w, h, w, h], np.float32)
-        xyxy = np.concatenate([b[:, :2] - b[:, 2:] / 2,
-                               b[:, :2] + b[:, 2:] / 2], 1)
-        self.sam.set_image(image)
-        masks, _ = self.sam.predict_boxes(xyxy, multimask=False)
-        masks = masks[:, 0]                      # (n, H, W) bool
-
-        # stage 1: phrase-vs-prompt similarity cutoff (0.99/0.9)
-        if self.text_similarity is not None:
-            prob = np.asarray([self.text_similarity(prompt, ph)
-                               for ph in phrases], np.float64)
-        else:
-            prob = scores.astype(np.float64)
-        keep = rerank_keep(prob, 0.99, 0.9)
-        # stage 2: detector-score cutoff (0.8/0.8) on the survivors
-        keep = keep[rerank_keep(scores[keep].astype(np.float64), 0.8, 0.8)]
-        return masks[keep].any(0)
+        with span("res.request"):
+            h, w = image.shape[:2]
+            boxes, scores, phrases = self.dino.predict(
+                image, prompt, self.box_threshold, self.text_threshold)
+            count("res.boxes", len(boxes))
+            if len(boxes) == 0:
+                return None
+            with span("res.host"):
+                # cxcywh normalized -> xyxy pixels
+                # (ref:res_model.py:291-294)
+                b = np.asarray(boxes) * np.asarray([w, h, w, h], np.float32)
+                xyxy = np.concatenate([b[:, :2] - b[:, 2:] / 2,
+                                       b[:, :2] + b[:, 2:] / 2], 1)
+            self.sam.set_image(image)
+            masks, _ = self.sam.predict_boxes(xyxy, multimask=False)
+            with span("res.host"):
+                masks = masks[:, 0]                  # (n, H, W) bool
+                # stage 1: phrase-vs-prompt similarity cutoff (0.99/0.9)
+                if self.text_similarity is not None:
+                    prob = np.asarray([self.text_similarity(prompt, ph)
+                                       for ph in phrases], np.float64)
+                else:
+                    prob = scores.astype(np.float64)
+                keep = rerank_keep(prob, 0.99, 0.9)
+                # stage 2: detector-score cutoff (0.8/0.8) on the
+                # survivors
+                keep = keep[rerank_keep(scores[keep].astype(np.float64),
+                                        0.8, 0.8)]
+                return masks[keep].any(0)
 
 
 class CommandRESProvider:

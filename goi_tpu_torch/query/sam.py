@@ -32,6 +32,7 @@ from goi_tpu_torch.query._nn import (MLP, fan_in, gelu, init_by_rule_,
                                      layer_norm, linear, merge_heads, randn,
                                      split_heads)
 from goi_tpu_torch.utils.image import resize_linear
+from goi_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -448,12 +449,14 @@ class SamTorch:
         cfg, dev = self.cfg, self.device
         h, w = image.shape[:2]
         nh, nw = self._longest_side(h, w, cfg.img_size)
-        img = resize_linear(torch.as_tensor(np.asarray(image, np.float32),
-                                            device=dev), (nh, nw, 3))
-        img = (img - torch.as_tensor(PIXEL_MEAN, device=dev)) \
-            / torch.as_tensor(PIXEL_STD, device=dev)
-        img = F.pad(img, (0, 0, 0, cfg.img_size - nw, 0, cfg.img_size - nh))
-        self._emb = self.model.image_encoder(img.permute(2, 0, 1)[None])
+        with span("sam.encoder"):
+            img = resize_linear(torch.as_tensor(np.asarray(image, np.float32),
+                                                device=dev), (nh, nw, 3))
+            img = (img - torch.as_tensor(PIXEL_MEAN, device=dev)) \
+                / torch.as_tensor(PIXEL_STD, device=dev)
+            img = F.pad(img, (0, 0, 0, cfg.img_size - nw,
+                              0, cfg.img_size - nh))
+            self._emb = self.model.image_encoder(img.permute(2, 0, 1)[None])
         self._orig_hw = (h, w)
         self._new_hw = (nh, nw)
 
@@ -467,20 +470,22 @@ class SamTorch:
         cfg, m, dev = self.cfg, self.model, self._emb.device
         h, w = self._orig_hw
         nh, nw = self._new_hw
-        scale = torch.tensor([nw / w, nh / h, nw / w, nh / h],
-                             dtype=torch.float32, device=dev)
-        pe = m.prompt_encoder
-        sparse = pe.encode_boxes(torch.as_tensor(
-            np.asarray(boxes, np.float32), device=dev) * scale)
-        b = sparse.shape[0]
-        masks, iou = m.mask_decoder(
-            self._emb.expand(b, -1, -1, -1), pe.dense_pe(), sparse,
-            pe.no_mask(b), multimask)
-        # postprocess_masks: 256 -> 1024, crop the padding, -> original
-        n = masks.shape[1]
-        up = resize_linear(masks, (b, n, cfg.img_size, cfg.img_size))
-        up = resize_linear(up[:, :, :nh, :nw], (b, n, h, w))
-        return (up > 0.0).cpu().numpy(), iou.float().cpu().numpy()
+        with span("sam.decode"):
+            scale = torch.tensor([nw / w, nh / h, nw / w, nh / h],
+                                 dtype=torch.float32, device=dev)
+            pe = m.prompt_encoder
+            sparse = pe.encode_boxes(torch.as_tensor(
+                np.asarray(boxes, np.float32), device=dev) * scale)
+            b = sparse.shape[0]
+            masks, iou = m.mask_decoder(
+                self._emb.expand(b, -1, -1, -1), pe.dense_pe(), sparse,
+                pe.no_mask(b), multimask)
+            # postprocess_masks: 256 -> 1024, crop the padding, ->
+            # original
+            n = masks.shape[1]
+            up = resize_linear(masks, (b, n, cfg.img_size, cfg.img_size))
+            up = resize_linear(up[:, :, :nh, :nw], (b, n, h, w))
+            return (up > 0.0).cpu().numpy(), iou.float().cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,10 @@ host range of its name in the profiler's trace (a CPU-op scope,
 device-side twin that would fill the idle gaps it encloses), reads the
 host clock and records two CUDA timing events on the current stream at
 its entry and exit (no synchronise), and notes its parent and its unit:
-the step or frame it belongs to. Span names never hold a kernel's name.
+the step, frame or request it belongs to. A unit's span opened while a
+span of the same unit is open joins it: a caller may open the unit
+around more than the function that opens it (the RES request around the
+render it starts from). Span names never hold a kernel's name.
 
 Spans (file, function):
   distill.step (unit)    train/distill.py, create_distill_state's
@@ -45,8 +48,27 @@ Spans (file, function):
     dist.mean_over_data  dist/shard.py _mean_over_data; its self time is
                          the gradients' cat, divide and copies back
       dist.allreduce     around its dist.all_reduce
+  res.request (unit)     query/res.py TorchRESProvider.predict_mask
+    dino.backbone        query/grounding.py: the image's resize and
+                         normalisation (GroundingDINOTorch.inputs), Swin
+                         and the input projections (GroundingDINO.encode)
+    dino.text            encode: BERT and feat_map
+    dino.encoder         encode: the feature enhancer
+      deform_attn        query/deform_attn.py ms_deform_attn_core
+    dino.decoder         GroundingDINO.forward: the query selection and
+                         the decoder; predict: the outputs' copy to the
+                         host
+    sam.encoder          query/sam.py SamTorch.set_image: the resize,
+                         normalisation and padding, the image encoder
+    sam.decode           SamTorch.predict_boxes: the prompt encoder, the
+                         mask decoder, the upscale chain, the copy to the
+                         host
+    res.host             the caption's tokens and masks (inputs), the
+                         thresholds and phrases (predict), the boxes'
+                         pixels, the re-rank and the union (predict_mask)
 Counters (raster/render.py _bin; raster/cuda_blend.py blend_tiles_cuda;
-raster/preprocess.py preprocess):
+raster/preprocess.py preprocess; query/grounding.py encode;
+query/deform_attn.py ms_deform_attn_core; query/res.py predict_mask):
   preprocess.fused       the Gaussians preprocessed by the kernel
   preprocess.plain       the Gaussians of CUDA tensors preprocessed by the
                          composition (a gradient flows to the geometry)
@@ -55,6 +77,10 @@ raster/preprocess.py preprocess):
   blend.walked           the forward's walked pairs (raw's per-pixel
                          counts, summed in float64)
   blend.blended          the forward's blended pairs (likewise)
+  dino.image_tokens      GroundingDINO's image tokens over its levels
+  deform.samples         deformable attention's queries x heads x levels
+                         x points, summed over the calls
+  res.boxes              the boxes the detector hands SAM
 """
 
 from __future__ import annotations
@@ -121,7 +147,7 @@ def trace(log_dir: str):
         yield log_dir
 
 
-UNITS = ("distill.step", "query.frame", "dist.step")
+UNITS = ("distill.step", "query.frame", "dist.step", "res.request")
 
 
 class _Span:
@@ -188,6 +214,10 @@ class Registry:
         with self._lock:
             self._stack.remove(s)
             self._done.append(s)
+
+    def is_open(self, name: str) -> bool:
+        with self._lock:
+            return any(s.name == name for s in self._stack)
 
     def count(self, name: str, value) -> None:
         if not isinstance(value, torch.Tensor):
@@ -258,8 +288,11 @@ def armed() -> bool:
 
 def span(name: str):
     """Time the block as the span `name` while armed (the module
-    docstring lists the spans); disarmed, a shared null context."""
+    docstring lists the spans); disarmed, or a unit already open under
+    this name, a shared null context."""
     if not torch.autograd._profiler_enabled():
+        return _NULL
+    if name in UNITS and _REGISTRY.is_open(name):
         return _NULL
     return _Span(name)
 

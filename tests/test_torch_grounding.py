@@ -314,11 +314,30 @@ def test_grounding_forward_matches_jax(tiny_pair):
     assert torch.equal(again["pred_boxes"], got["pred_boxes"])
 
 
+@pytest.fixture
+def published_input(monkeypatch):
+    """goi_tpu's predictor squashes a view to its square input; the port
+    resizes it by the published rule (`input_hw`, the aspect kept). So
+    that both packages are fed the same tensor, goi_tpu's resize of the
+    view to its square goes to the port's (h, w) instead, through
+    jax.image.resize as before."""
+    real = jax.image.resize
+
+    def resize(x, shape, *a, **kw):
+        s = tg.GDINO_TINY_TEST.img_size
+        if x.ndim == 3 and tuple(shape) == (s, s, 3):
+            shape = tg.input_hw(x.shape[0], x.shape[1], s,
+                                tg.GDINO_TINY_TEST.max_size) + (3,)
+        return real(x, shape, *a, **kw)
+
+    monkeypatch.setattr(jax.image, "resize", resize)
+
+
 @pytest.mark.parametrize("h_w", [(48, 64), (80, 72)])
-def test_predict_equal_jax(tiny_pair, h_w):
+def test_predict_equal_jax(tiny_pair, h_w, published_input):
     """Kept boxes, scores and phrases at a threshold between two scores:
-    the image is resized to the square input (up, or down with the
-    antialias) as jax.image.resize does."""
+    the image is resized to the published input shape (up, or down with
+    the antialias) as jax.image.resize does."""
     jdet, tdet = tiny_pair
     img = np.random.default_rng(0).uniform(0, 1, h_w + (3,)) \
         .astype(np.float32)

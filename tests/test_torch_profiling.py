@@ -295,6 +295,48 @@ def test_self_time_is_duration_less_children():
     assert 2.0 <= sp["optim"]["host_ms"]
 
 
+def test_a_unit_inside_another_counts_apart_and_a_unit_joins_itself():
+    """A unit opened inside another unit (the viewer's frame inside a RES
+    request) is a unit of its own and owns its spans; a unit's span
+    opened while that unit is open (predict_mask's request inside the
+    caller's) joins it: no call, no unit, its spans the open unit's."""
+    with cpu_profile():
+        with profiling.span("res.request"):
+            with profiling.span("query.frame"):
+                with profiling.span("render"):
+                    pass
+            with profiling.span("res.request"):
+                with profiling.span("res.host"):
+                    pass
+        with profiling.span("res.request"):
+            with profiling.span("res.host"):
+                pass
+    snap = profiling.snapshot()
+    recs = profiling.records()
+    assert [r[0] for r in recs] == ["render", "query.frame", "res.host",
+                                    "res.request", "res.host",
+                                    "res.request"]
+    (_, render_id, render_parent, render_unit), \
+        (_, frame_id, frame_parent, frame_unit), \
+        (_, _, host_parent, host_unit), (_, outer, outer_parent, _), \
+        (_, _, host2_parent, host2_unit), (_, second, _, _) = recs
+    assert outer_parent is None
+    assert (frame_parent, frame_unit) == (outer, frame_id)
+    assert (render_parent, render_unit) == (frame_id, frame_id)
+    assert (host_parent, host_unit) == (outer, outer)
+    assert (host2_parent, host2_unit) == (second, second)
+    assert snap["units"] == {"res.request": 2, "query.frame": 1}
+    sp = snap["spans"]
+    assert sp["res.request"]["calls"] == 2
+    assert sp["query.frame"]["calls"] == 1 and sp["res.host"]["calls"] == 2
+    # the outer request's self time leaves out the frame and its own host
+    # work; the frame's, its render
+    assert sp["query.frame"]["self_host_ms"] == pytest.approx(
+        sp["query.frame"]["host_ms"] - sp["render"]["host_ms"], abs=1e-9)
+    assert sum(v["self_host_ms"] for v in sp.values()) == pytest.approx(
+        sp["res.request"]["host_ms"], abs=1e-9)
+
+
 def test_counters_hold_the_binning_and_the_blend(monkeypatch):
     """binning.kept and binning.sorted_slots are the chunked binning's
     last tile end and budget; blend.walked and blend.blended raw's own

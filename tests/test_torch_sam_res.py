@@ -283,7 +283,27 @@ def res_pair(tiny):
     return jd, js, td, ts
 
 
-def test_res_provider_mask_equal_jax(res_pair):
+@pytest.fixture
+def published_input(monkeypatch):
+    """goi_tpu's detector squashes a view to its square input; the port
+    resizes it by the published rule (`input_hw`, the aspect kept). So
+    that both packages are fed the same tensor, goi_tpu's resize of the
+    view to its square goes to the port's (h, w) instead, through
+    jax.image.resize as before (SAM's resizes are not square, and
+    pass)."""
+    real = jax.image.resize
+
+    def resize(x, shape, *a, **kw):
+        s = tg.GDINO_TINY_TEST.img_size
+        if x.ndim == 3 and tuple(shape) == (s, s, 3):
+            shape = tg.input_hw(x.shape[0], x.shape[1], s,
+                                tg.GDINO_TINY_TEST.max_size) + (3,)
+        return real(x, shape, *a, **kw)
+
+    monkeypatch.setattr(jax.image, "resize", resize)
+
+
+def test_res_provider_mask_equal_jax(res_pair, published_input):
     jd, js, td, ts = res_pair
     img = _image()
     _, scores, _ = jd.predict(img, "the red chair", box_threshold=0.0)
