@@ -32,6 +32,12 @@ exits non-zero without the final result line:
    1M Gaussians (the main-path scene and frame) and garden's 5.8M (the
    m360-garden cell's scene and view), with its time in a run of calls,
    its own device time, the composition's time and the bytes bound;
+   the distillation loss's row kernel (csrc/distill_loss.cu, between
+   two fp32 GEMMs) forward and backward against the composition at
+   both distillation cells' pixel counts (against the composition in
+   float64: terms rtol 1e-5, gradients no further off than twice the
+   fp32 composition, two runs bit for bit), timed beside the
+   composition and the GEMMs' flop bound, with its top device kernels;
 4. [main] the query path: a seeded 1,000,000-Gaussian scene (SH degree
    3, 10 semantic channels), a 10->300 decoder and a 300x256 LUT, saved
    as the PLY + pickle + LUT.npy triplet and loaded back; QuerySession
@@ -221,7 +227,10 @@ N_TRACES = 6        # trace() calls on the main path, cycling the views
 MICRO_ITERS = 5     # steps per figure of the micro-benchmark
 KERNEL_SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "trace",
                   "prefix_boundary", "mono_rows", "density_grid",
-                  "owner_sums", "preprocess")
+                  "owner_sums", "preprocess", "distill_loss")
+# the loss kernel's check: both distillation cells' frames (scannet-1m's
+# is WIDTH x HEIGHT)
+LOSS_FRAMES = (("scannet", 1296, 968), ("garden", 1297, 840))
 # the preprocess kernel's check: garden's Gaussian count (the
 # m360-garden cell), beside the main path's N_GAUSS (scannet's)
 GARDEN_GAUSS = 5_800_000
@@ -630,6 +639,168 @@ def preprocess_phase() -> dict:
     return stats
 
 
+def device_top(fn, iters=5, top=6):
+    """[(kernel name, device ms a call)] of fn's heaviest device kernels
+    over iters calls under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    return [(k[:70], round(ms, 4)) for k, ms in rows[:top]]
+
+
+def loss_argmax_slack(dec, lut, sem) -> float:
+    """What recc's gradient to the LUT may differ by where the kernel's
+    logits and PyTorch's, a rounding apart, pick another code: 2 / (P
+    min |L_k|) (a pixel's alpha gtl and beta L at two codes) for each
+    pixel whose two largest probabilities lie within 4e-6 of each other
+    (the rule of the card tests' _argmax_slack)."""
+    import torch
+    with torch.no_grad():
+        top = torch.topk(torch.softmax(dec(sem), dim=1), 2, dim=1).values
+        near = int((top[:, 0] - top[:, 1] <= 4e-6 * top[:, 0]).sum())
+        return near * 2.0 / (sem.shape[0] * float(lut.norm(dim=1).min()))
+
+
+def loss_phase() -> dict:
+    """The distillation loss's row path (semantic/losses.py
+    distillation_loss on CUDA tensors: csrc/distill_loss.cu between two
+    fp32 GEMMs) at each LOSS_FRAMES frame, 300 codes x 256 channels, the
+    10 -> 300 decoder, seeded maps read through the callers' (P, C)
+    views: forward and backward against the fp32 composition on the
+    same inputs (distillation_loss_plain; each gradient within 1e-4 of
+    its peak, the LUT's also within loss_argmax_slack) and against the
+    composition in float64 (terms rtol 1e-5, each gradient's error of its
+    peak at most twice the fp32 composition's, or 1e-5), the kernel path
+    twice bit for bit; ms: forward and
+    backward in a run of calls; plain_ms: the composition's; bound_ms:
+    the two GEMMs' 4 P K C flops at PEAK_FP32_PER_S; bytes_ms: the rows
+    read and written once, g and the features read once, at
+    PEAK_BYTES_PER_S. Returns the kernels line's figures (garden's, and
+    scannet's with _scannet) and the launches."""
+    import importlib
+    import torch
+    from goi_tpu_torch.semantic.codebook import SemanticDecoder
+    L = importlib.import_module("goi_tpu_torch.semantic.losses")
+    stats = {}
+    before = L.loss_rows_cuda.launches
+    for label, w, h in LOSS_FRAMES:
+        p = w * h
+        gen = torch.Generator().manual_seed(31)
+        dec = SemanticDecoder.create(gen, dim_in=SEM_DIM, dim_out=TAB_LEN,
+                                     device="cuda")
+        cgen = torch.Generator(device="cuda").manual_seed(31)
+        lut = torch.randn((TAB_LEN, APE_DIM), generator=cgen,
+                          device="cuda").requires_grad_()
+        sem_map = torch.randn((SEM_DIM, h, w), generator=cgen,
+                              device="cuda").requires_grad_()
+        gt = torch.randn((APE_DIM, h, w), generator=cgen,
+                         device="cuda").reshape(APE_DIM, -1).T
+        leaves = [lut, sem_map, *dec.parameters()]
+
+        def run(fn):
+            for t in leaves:
+                t.grad = None
+            total, aux = fn(dec, lut, sem_map.reshape(SEM_DIM, -1).T, gt,
+                            1.0)
+            total.backward()
+            return aux
+
+        def grads():
+            return [t.grad.clone() for t in leaves]
+
+        got = run(L.distillation_loss)
+        g1 = grads()
+        again = run(L.distillation_loss)
+        if not (all(torch.equal(a, b) for a, b in zip(g1, grads()))
+                and all(torch.equal(got[k], again[k]) for k in got)):
+            raise AssertionError(f"[kernels] distill_loss {label}: two "
+                                 f"runs differ")
+        comp = run(L.distillation_loss_plain)
+        g_comp = grads()
+        slack = loss_argmax_slack(dec, lut, sem_map.reshape(SEM_DIM, -1).T)
+        # the yardstick: the composition in float64
+        dec64 = copy.deepcopy(dec).double()
+        x64 = [t.detach().double().requires_grad_() for t in (lut, sem_map)]
+        t64, aux64 = L.distillation_loss_plain(
+            dec64, x64[0], x64[1].reshape(SEM_DIM, -1).T, gt.double(), 1.0)
+        t64.backward()
+        g64 = [x64[0].grad, x64[1].grad,
+               *[q.grad for q in dec64.parameters()]]
+        names = ["lut", "sem", *[n for n, _ in dec.named_parameters()]]
+        errs = {}
+        for name, a, c, r in zip(names, g1, g_comp, g64):
+            peak = float(r.abs().max())
+            errs[name] = (float((a.double() - r).abs().max()) / peak,
+                          float((c.double() - r).abs().max()) / peak,
+                          float((a - c).abs().max()) / peak)
+        for k in aux64:
+            ref = float(aux64[k].detach())
+            if not (math.isclose(float(got[k].detach()), ref, rel_tol=1e-5,
+                                 abs_tol=1e-7)
+                    and math.isclose(float(comp[k].detach()), ref, rel_tol=1e-5,
+                                     abs_tol=1e-7)):
+                raise AssertionError(
+                    f"[kernels] distill_loss {label}: {k} {float(got[k])} "
+                    f"(composition {float(comp[k])}) vs float64 {ref}")
+        worst = max(e[2] for e in errs.values())
+        off = {n: (float((a - c).abs().max()), float(c.abs().max()))
+               for n, a, c in zip(names, g1, g_comp)}
+        off = {n: e for n, e in off.items()
+               if e[0] > 1e-4 * e[1] + (slack if n == "lut" else 0.0)}
+        if off:
+            raise AssertionError(f"[kernels] distill_loss {label}: gradients "
+                                 f"off the fp32 composition's by more than "
+                                 f"1e-4 of their peak (the LUT's slack "
+                                 f"{slack:.3e}; error, peak): {off}")
+        bad = {n: e for n, e in errs.items() if e[0] > max(2 * e[1], 1e-5)}
+        if bad:
+            raise AssertionError(f"[kernels] distill_loss {label}: gradients "
+                                 f"off float64 by more than twice the "
+                                 f"composition's (kernel, composition, of "
+                                 f"the peak): {bad}")
+        log(f"[kernels] distill_loss {label}: gradients' error of the peak "
+            f"against the float64 composition (kernel path, fp32 "
+            f"composition) and the kernel path's against the fp32 "
+            f"composition: " + ", ".join(f"{n} {a:.2e} {c:.2e} {d:.2e}"
+                                         for n, (a, c, d) in errs.items()))
+        del g1, g_comp, g64, x64, dec64, t64, comp, got, again
+        ms = run_ms(lambda: run(L.distillation_loss), iters=10)
+        plain_ms = run_ms(lambda: run(L.distillation_loss_plain), iters=3)
+        top = device_top(lambda: run(L.distillation_loss))
+        bound_ms = 4 * p * TAB_LEN * APE_DIM / PEAK_FP32_PER_S * 1e3
+        bytes_ms = 4 * (2 * p * TAB_LEN + p * APE_DIM + 2 * p * SEM_DIM) \
+            / PEAK_BYTES_PER_S * 1e3
+        log(f"[kernels] distill_loss {label} ({p} pixels x {TAB_LEN} codes "
+            f"x {APE_DIM} channels, S={SEM_DIM}): terms within 1e-5 of "
+            f"the float64 composition's, gradients within {worst:.2e} of "
+            f"their peak of the fp32 composition's (LUT slack "
+            f"{slack:.2e}), bit-identical over two "
+            f"runs; forward + "
+            f"backward {ms:.3f} ms in a run, bound {bound_ms:.3f} ms "
+            f"(flops; bytes {bytes_ms:.3f} ms), composition "
+            f"{plain_ms:.3f} ms; top device kernels {top}")
+        sfx = "" if label == "garden" else "_" + label
+        stats.update({f"ms{sfx}": round(ms, 3),
+                      f"bound_ms{sfx}": round(bound_ms, 3),
+                      f"bytes_ms{sfx}": round(bytes_ms, 3),
+                      f"plain_ms{sfx}": round(plain_ms, 3),
+                      f"grad_err{sfx}": float(f"{worst:.3e}")})
+        del dec, lut, sem_map, gt, leaves
+        torch.cuda.empty_cache()
+    stats["launches"] = L.loss_rows_cuda.launches - before
+    return stats
+
+
 def check_gather(table, base, m):
     """The fused expansion gather against its plain version (scatter +
     cummax + gather) bit for bit, and monotone_gather on its g_stream;
@@ -1034,7 +1205,7 @@ def train_phase(scene, cams, cfg, stats):
         losses.append(float(aux["total"]))
     launches = {k: n for k, n in read_counts().items()
                 if k in ("gather", "blend", "blend_bwd", "prefix",
-                         "owner_sums", "preprocess")}
+                         "owner_sums", "preprocess", "distill_loss")}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     p50, p95 = np.percentile(step_ms, [50, 95])
     log(f"[train] {N_STEPS} steps at {WIDTH}x{HEIGHT}, 1M Gaussians, "
@@ -1049,9 +1220,10 @@ def train_phase(scene, cams, cfg, stats):
         raise AssertionError("the loss did not fall")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
-    if launches["preprocess"] != N_STEPS:
-        raise AssertionError(f"[train] {N_STEPS} steps launched preprocess "
-                             f"{launches['preprocess']} times, not once each")
+    for k in ("preprocess", "distill_loss"):
+        if launches[k] != N_STEPS:
+            raise AssertionError(f"[train] {N_STEPS} steps launched {k} "
+                                 f"{launches[k]} times, not once each")
     slots = int(aux["num_slots"])
     if slots > cfg.max_instances:
         raise AssertionError(f"num_slots {slots} > {cfg.max_instances}")
@@ -3975,6 +4147,7 @@ def main() -> int:
     check_prefix(*seen["prefix"], label="100k 512x512")
     del small, seen
     preprocess_stats = preprocess_phase()
+    loss_stats = loss_phase()
 
     scene = make_scene(N_GAUSS, seed=0, device="cuda")
     cams = orbit_cams(WIDTH, HEIGHT, N_VIEWS, "cuda")
@@ -4206,6 +4379,18 @@ def main() -> int:
              "device time (profiler); plain_ms: the composition "
              "(preprocess_plain); garden's 5.8M Gaussians, _1m scannet's",
         **stats["preprocess"]))
+    kernels.append(dict(
+        name="distill_loss", route="cuda",
+        source="goi_tpu_torch/raster/csrc/distill_loss.cu",
+        replaces="none: goi_tpu/semantic/losses.py, XLA (no Pallas)",
+        launches=launches["distill_loss"],
+        note="ms: the loss's forward and backward (the unit rows, the two "
+             "fp32 GEMMs, the row kernel, its sums and epilogue) in a run "
+             "of calls; plain_ms: the composition (distillation_loss_plain); "
+             "bound_ms: the GEMMs' flops; garden's 1297x840, _scannet "
+             "1296x968; launches: the main path's, the check's apart "
+             "(check_launches)",
+        check_launches=loss_stats.pop("launches"), **loss_stats))
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     log(f"[done] {time.time() - t_start:.1f} s")

@@ -52,7 +52,8 @@ N_GAUSS = 4_000_000
 WIDTH, HEIGHT = 1296, 968
 N_VIEWS = 3
 SEM_DIM, APE_DIM, TAB_LEN = 10, 256, 300
-SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "owner_sums")
+SOURCES = ("gather", "blend_fwd", "blend_bwd", "prefix", "owner_sums",
+           "distill_loss")
 TOL_FRAME = 3e-5
 DISTILL_STEPS = 5          # the first compared, the rest timed
 SCALE_ITERS = 5

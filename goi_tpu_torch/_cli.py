@@ -44,11 +44,13 @@ def kernel_wrappers() -> dict:
     from goi_tpu_torch.raster.preprocess import preprocess_cuda
     from goi_tpu_torch.raster.reduce import (owner_sums, prefix_blocks,
                                              prefix_boundary)
+    from goi_tpu_torch.semantic.losses import loss_rows_cuda
     return {"gather": expand_gather, "blend": blend_fwd,
             "blend_bwd": blend_bwd, "prefix": prefix_blocks,
             "trace": trace_fwd, "prefix_boundary": prefix_boundary,
             "mono_rows": mono_rows, "density_grid": mixture_grid,
-            "owner_sums": owner_sums, "preprocess": preprocess_cuda}
+            "owner_sums": owner_sums, "preprocess": preprocess_cuda,
+            "distill_loss": loss_rows_cuda}
 
 
 def launch_counts() -> dict:

@@ -28,8 +28,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # versions round them, so threshold tests (alpha >= 1/255, T < 1e-4)
 # decide the same way in a kernel and in its plain version. blend_bwd.cu
 # writes its walk with intrinsics nvcc never contracts and lets its
-# gradient math use FMA; density_grid.cu has no threshold to keep.
-CONTRACT = {"blend_bwd", "density_grid"}
+# gradient math use FMA; density_grid.cu and distill_loss.cu have no
+# threshold to keep.
+CONTRACT = {"blend_bwd", "density_grid", "distill_loss"}
 
 
 def flags(name: str) -> list:

@@ -67,11 +67,16 @@ Spans (file, function):
                          thresholds and phrases (predict), the boxes'
                          pixels, the re-rank and the union (predict_mask)
 Counters (raster/render.py _bin; raster/cuda_blend.py blend_tiles_cuda;
-raster/preprocess.py preprocess; query/grounding.py encode;
+raster/preprocess.py preprocess; semantic/losses.py distillation_loss;
+query/grounding.py encode;
 query/deform_attn.py ms_deform_attn_core; query/res.py predict_mask):
   preprocess.fused       the Gaussians preprocessed by the kernel
   preprocess.plain       the Gaussians of CUDA tensors preprocessed by the
                          composition (a gradient flows to the geometry)
+  loss.fused             the pixels whose loss the row kernel computed
+                         (csrc/distill_loss.cu)
+  loss.plain             the pixels whose loss the composition computed
+                         (CPU tensors)
   binning.sorted_slots   the sort's length (the instance budget)
   binning.kept           the instances the blend walks (the tiles' ranges)
   blend.walked           the forward's walked pairs (raw's per-pixel

@@ -21,6 +21,7 @@ the mono row gather and the preprocess kernel (every Splats field, NaN
 at the same places) bit for bit.
 """
 
+import copy
 import dataclasses
 import importlib
 import math
@@ -42,6 +43,7 @@ from goi_tpu_torch.raster.gather import (expand_gather, expand_gather_plain,
                                          slot_owners_search)
 from goi_tpu_torch.raster.preprocess import preprocess
 from goi_tpu_torch.raster.render import RasterConfig, render, trace
+from goi_tpu_torch.semantic import losses as L
 from goi_tpu_torch.semantic.codebook import SemanticDecoder
 from goi_tpu_torch.train.distill import create_distill_state, distill_loss
 from goi_tpu_torch.train.optim import OptimConfig
@@ -1462,3 +1464,161 @@ def test_geometry_finetune_keeps_the_composition(cuda, monkeypatch):
     # zero gradient, everything that places a Gaussian a nonzero one
     for k in ("xyz", "scaling", "rotation", "opacity", "semantics"):
         assert bool(want[k].abs().sum() > 0), k
+
+
+# ---- the distillation loss's row kernel (csrc/distill_loss.cu) ----
+
+def _loss_inputs(device, p_hw, k=300, c=256, s=10, layers=1, norm=False,
+                 seed=0):
+    """A decoder, a LUT and the callers' (P, S) and (P, C) views of a
+    seeded (S, H, W) rendered map and (C, H, W) feature map."""
+    h, w = p_hw
+    gen = torch.Generator().manual_seed(seed)
+    dec = SemanticDecoder.create(gen, dim_in=s, dim_hidden=64, dim_out=k,
+                                 num_layer=layers, norm=norm, device="cpu")
+    with torch.no_grad():
+        for b in dec.biases:
+            b.normal_(0, 0.1, generator=gen)
+    lut = torch.randn((k, c), generator=gen)
+    lut[7] = lut[2]                    # a duplicate code: tied sim
+    sem_map = torch.randn((s, h, w), generator=gen)
+    gt_map = torch.randn((c, h, w), generator=gen)
+    gt_map[:, 0, 3] = 0.0              # an all-zero feature row
+    sem_map, gt_map = sem_map.to(device), gt_map.to(device)
+    return (dec.to(device), lut.to(device),
+            sem_map.reshape(s, -1).T, gt_map.reshape(c, -1).T)
+
+
+def _loss_grads(fn, dec, lut, sem, gt, t=1.0, scale=1.0, **kw):
+    dec = copy.deepcopy(dec)
+    lut = lut.detach().clone().requires_grad_()
+    sem = sem.detach().clone().requires_grad_()
+    total, aux = fn(dec, lut, sem, gt, t, **kw)
+    (total * scale).backward()
+    grads = {"lut": lut.grad, "sem": sem.grad}
+    grads.update({n: q.grad for n, q in dec.named_parameters()})
+    return {k: v.detach() for k, v in aux.items()}, grads
+
+
+def _argmax_slack(dec, lut, sem):
+    """What recc's gradient to the LUT may differ by where the kernel's
+    logits and PyTorch's, a rounding apart, pick another code: 2 / (P
+    min |L_k|) (a pixel's alpha gtl and beta L at two codes) for each
+    pixel whose two largest probabilities lie within 4e-6 of each other."""
+    with torch.no_grad():
+        top = torch.topk(torch.softmax(dec(sem), dim=1), 2, dim=1).values
+        near = int((top[:, 0] - top[:, 1] <= 4e-6 * top[:, 0]).sum())
+        return near * 2.0 / (sem.shape[0] * float(lut.norm(dim=1).min()))
+
+
+def _loss_close(got, want, rtol_terms=1e-5, rel_peak=1e-4, lut_slack=0.0):
+    """Terms within rtol_terms, every gradient within rel_peak of its
+    peak; the LUT's also within lut_slack (_argmax_slack)."""
+    (ta, ga), (tb, gb) = got, want
+    for k in tb:
+        assert float(ta[k]) == pytest.approx(float(tb[k]), rel=rtol_terms,
+                                             abs=1e-7), k
+    assert set(ga) == set(gb)
+    for k in gb:
+        err = float((ga[k] - gb[k]).abs().max())
+        bound = rel_peak * float(gb[k].abs().max())
+        assert err <= bound + (lut_slack if k == "lut" else 0.0), (k, err)
+
+
+def test_distill_loss_kernel_matches_plain_at_full_size(cuda):
+    """1296x968 pixels x 300 codes x 256 channels, S = 10: the kernel
+    against its plain twin and the composition in every output."""
+    dec, lut, sem, gt = _loss_inputs(cuda, (968, 1296))
+    before = L.loss_rows_cuda.launches
+    got = _loss_grads(L.distillation_loss, dec, lut, sem, gt)
+    assert L.loss_rows_cuda.launches == before + 1
+    twin = _loss_grads(L.distillation_loss_rows, dec, lut, sem, gt,
+                       impl="plain")
+    comp = _loss_grads(L.distillation_loss_plain, dec, lut, sem, gt)
+    slack = _argmax_slack(dec, lut, sem)
+    _loss_close(got, twin, lut_slack=slack)
+    _loss_close(got, comp, lut_slack=slack)
+
+
+def test_distill_loss_kernel_bit_identical_over_two_runs(cuda):
+    dec, lut, sem, gt = _loss_inputs(cuda, (968, 1296))
+    a = _loss_grads(L.distillation_loss, dec, lut, sem, gt, t=2.0)
+    b = _loss_grads(L.distillation_loss, dec, lut, sem, gt, t=2.0)
+    for x, y in zip(a, b):
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+
+
+@pytest.mark.parametrize("case", [
+    "base", "anneal2", "quarter", "half_view", "tiny_lut_row", "two_layer",
+    "norm_output", "wide_s", "small_k", "many_codes", "ragged",
+    "codes_1024", "codes_700_ragged"])
+def test_distill_loss_kernel_paths(cuda, case):
+    """Every instance and path of the row kernels against their plain
+    twin on the card: the decoder in the kernel (S <= 10, S <= 32, K <=
+    320), the logits path (two layers, an output norm, and past 320
+    codes: 400, 700, 1024), a ragged last tile, a half view of the map,
+    a LUT row under the clamp, t = 2, grad_output 1/4."""
+    kw = dict(k=300, c=256, s=10, layers=1, norm=False)
+    hw = (120, 160)
+    if case == "two_layer":
+        kw["layers"] = 2
+    if case == "norm_output":
+        kw["norm"] = True
+    if case == "wide_s":
+        kw["s"] = 20
+    if case == "small_k":
+        kw.update(k=12, c=32)
+    if case == "many_codes":
+        kw["k"] = 400
+    if case == "ragged":
+        hw = (37, 29)
+    if case == "codes_1024":
+        kw["k"] = 1024
+    if case == "codes_700_ragged":
+        kw["k"], hw = 700, (37, 29)
+    dec, lut, sem, gt = _loss_inputs(cuda, hw, **kw)
+    if case == "half_view":
+        sem, gt = sem[:sem.shape[0] // 2], gt[:gt.shape[0] // 2]
+    if case == "tiny_lut_row":
+        lut[5] *= 1e-9 / float(lut[5].norm())
+    t = 2.0 if case == "anneal2" else 1.0
+    scale = 0.25 if case == "quarter" else 1.0
+    got = _loss_grads(L.distillation_loss, dec, lut, sem, gt, t, scale)
+    want = _loss_grads(L.distillation_loss_rows, dec, lut, sem, gt, t,
+                       scale, impl="plain")
+    _loss_close(got, want, lut_slack=scale * _argmax_slack(dec, lut, sem))
+
+
+def test_distill_loss_many_codes_match_the_composition(cuda):
+    """A codebook of 1024 codes (--tab_len 1024) on the card: the logits
+    path against its twin and the composition in every output, and the
+    same bits from two runs."""
+    dec, lut, sem, gt = _loss_inputs(cuda, (240, 320), k=1024)
+    assert not L.decodes_in_kernel(dec)
+    got = _loss_grads(L.distillation_loss, dec, lut, sem, gt, t=2.0)
+    again = _loss_grads(L.distillation_loss, dec, lut, sem, gt, t=2.0)
+    for x, y in zip(got, again):
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+    slack = _argmax_slack(dec, lut, sem)
+    _loss_close(got, _loss_grads(L.distillation_loss_rows, dec, lut, sem, gt,
+                                 t=2.0, impl="plain"), lut_slack=slack)
+    _loss_close(got, _loss_grads(L.distillation_loss_plain, dec, lut, sem,
+                                 gt, t=2.0), lut_slack=slack)
+
+
+def test_train_step_launches_the_loss_kernel_once(cuda):
+    """A distillation step takes the row kernel once, counted as
+    loss.fused over its pixels; loss.plain stays 0."""
+    scene, decoder, lut, gt = _distill_parts(cuda)
+    cam = _cam(cuda)
+    cfg = RasterConfig(max_instances=1 << 17)
+    bg = torch.zeros(3, device=cuda)
+    state, step = create_distill_state(scene, decoder, lut, OptimConfig())
+    step(state, cam, gt, bg, cfg)
+    before = L.loss_rows_cuda.launches
+    counters = _armed(lambda: step(state, cam, gt, bg, cfg))
+    assert L.loss_rows_cuda.launches == before + 1
+    assert counters["loss.fused"] == cam.width * cam.height
+    assert "loss.plain" not in counters

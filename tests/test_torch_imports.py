@@ -408,3 +408,29 @@ def test_atomic_guard_catches_accumulating_calls(tmp_path):
                  "e.index_put_((i,), v)\nf.scatter_reduce_(0, i, v, 'amax')\n")
     assert [n for _, n in _atomic_float_sums(p)] == [
         "index_add_", "scatter_add", "index_put_", "scatter_reduce_"]
+
+
+def test_distill_loss_wrapper_raises_without_library(no_library):
+    """The loss's row path on a tensor the device check calls CUDA
+    launches its kernel or raises; it never runs the composition."""
+    from goi_tpu_torch.semantic import losses
+    from goi_tpu_torch.semantic.codebook import SemanticDecoder
+    before = losses.loss_rows_cuda.launches
+    dec = SemanticDecoder.create(torch.Generator().manual_seed(0), dim_in=10,
+                                 dim_out=12, device="cpu")
+    lut, sem, gt = torch.ones(12, 16), torch.ones(40, 10), torch.ones(40, 16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        losses.distillation_loss(dec, lut, sem, gt, 1.0)
+    with pytest.raises(TypeError):
+        losses.distillation_loss(dec, lut.double(), sem, gt, 1.0)
+    # any number of codes reaches the kernel: past FUSED_MAX_K the decoder
+    # runs in PyTorch and the second row kernel reads its logits
+    wide = SemanticDecoder.create(torch.Generator().manual_seed(0),
+                                  dim_in=10, dim_out=600, device="cpu")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        losses.distillation_loss(wide, torch.ones(600, 16), sem, gt, 1.0)
+    with pytest.raises(ValueError, match="K <= 320"):
+        losses.loss_rows_cuda(sem, wide.weights[0], None, torch.ones(600, 16),
+                              gt, 1.0, grad_x=True, grad_w=True,
+                              grad_lut=True)
+    assert losses.loss_rows_cuda.launches == before
