@@ -78,16 +78,6 @@ exits non-zero without the final result line:
    are counted in two windows that hold no reference call, the sharded
    renders' and the sharded step's, and each must show gather, blend,
    blend_bwd, prefix and owner_sums;
-6b. [aligned] the legacy aligned layout (budgets from suggest_budgets'
-   align path) on the main scene with seeded per-axis scales, with each
-   of its reduces 'scatter', 'sorted' and 'cumsum'
-   against the chunked layout: the forward kernel's walked and blended
-   counts equal, the frame within 3e-6, the gradients bit-identical over
-   two passes and at most FLIP_SHARE of their elements past TOL_LAYOUTS
-   of the chunked ones (scaled by the gradient's 99th percentile, as
-   tests/test_torch_reduce.py does; the two layouts sum the same rows in
-   another order),
-   trace()'s hit counts equal; fwd + bwd times;
 7. [widths] the blend, backward and trace kernels at semantic widths
    1, 12, 33, 64 (S_MAX; widths between the kernels' instances run
    padded to the next one), 65, 117 and 128 (in channel groups of
@@ -281,17 +271,12 @@ APP_OSH_EPOCHS = 300
 # tests/test_torch_train.py's GRAD_TOL (rtol, atol): a small scene's RGB
 # step on the card against the CPU's
 GRAD_TOL = (2e-3, 2e-4)
-# [dist1] and [aligned]: the sharded render against render(), the flip
-# budget of tests/test_sharded_render.py's chunked gradient test (at most
+# [dist1]: the sharded render against render(), the flip budget of
+# tests/test_sharded_render.py's chunked gradient test (at most
 # FLIP_SHARE of the elements past FLIP_TOL[0] + FLIP_TOL[1] |a|, none past
-# FLIP_MAX); the aligned layout against the chunked one at
-# tests/test_chunked_render.py's gradient bar, scaled as share_past_scale
-# says, on all but FLIP_SHARE of the elements
+# FLIP_MAX)
 TOL_DIST_FRAME = 3e-5
 FLIP_SHARE, FLIP_TOL, FLIP_MAX = 0.005, (5e-7, 2e-4), 5e-5
-TOL_LAYOUTS = (5e-3, 5e-4)
-TOL_LIFT = (1e-4, 1e-4)    # tests/test_torch_trace.py's lifted features
-ALIGNED_REDUCES = ("scatter", "sorted", "cumsum")
 # [export]: its own seeded scene, N_GAUSS Gaussians on the unit sphere
 # (isotropic scales uniform in EXPORT_SCALES, opacity EXPORT_OPACITY, DC
 # red above y = 0, blue below), exported by extract_textured_mesh's
@@ -925,20 +910,6 @@ def check_blend(feat, starts, ends, grid_x, label):
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=None)
-
-
-def share_past_scale(a, b, rtol, atol):
-    """(the share of the elements past |a - b| <= rtol max(|b|, q99 |b|)
-    + atol, max |a - b|): the bar of tests/test_torch_reduce.py::
-    test_chain_matches_pallas_chain, for two reduces' sums of the same
-    rows, whose rounding scales with the rows summed (a sum that cancels
-    may be far smaller than its rows); non-finite a counts as past."""
-    import torch
-    mag = b.abs().flatten()
-    q99 = float(mag.kthvalue(max(1, int(0.99 * mag.numel()))).values)
-    err = (a - b).abs()
-    past = ~(err <= rtol * torch.clamp(b.abs(), min=q99) + atol)
-    return float(past.float().mean()), float(err.max())
 
 
 def close_to_peak(a, b, rtol, atol_rel):
@@ -1829,114 +1800,6 @@ def launched(label, counts):
     for k in ("gather", "blend", "blend_bwd", "prefix", "owner_sums"):
         if counts[k] <= 0:
             raise AssertionError(f"{label}: {k} was not launched: {counts}")
-
-
-def aligned_phase(scene, cams, cfg):
-    """[aligned]: the legacy aligned layout on the 1M scene (its scales
-    made anisotropic) with the 'scatter', 'sorted' and 'cumsum' reduces
-    against the chunked layout:
-    the blend's walked and blended counts and trace()'s hit counts equal,
-    the frame within 3e-6, the gradients of a summed loss bit-identical
-    over two passes, and at most FLIP_SHARE of their elements past
-    TOL_LAYOUTS of the chunked ones (share_past_scale); fwd + bwd
-    times."""
-    import torch
-    from goi_tpu_torch.raster.cuda_blend import K, blend_fwd
-    from goi_tpu_torch.raster.render import (RasterConfig, render,
-                                             suggest_budgets, trace)
-    t_phase = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    # per-axis scales (0.5x-2x): an isotropic Gaussian's rotation gradient
-    # is rounding noise, which two reduces cannot agree on
-    scene = scene.replace(scaling=scene.scaling + torch.log(
-        0.5 + 1.5 * torch.rand(scene.scaling.shape, generator=gen,
-                               device="cuda")))
-    mi, mb = suggest_budgets(scene, cams, margin=1.2, align=K,
-                             layout="aligned")
-    cfg = RasterConfig(max_instances=suggest_budgets(scene, cams,
-                                                     margin=1.2)[0],
-                       reduce=cfg.reduce)
-    bg = torch.zeros(3, device="cuda")
-    tgt = torch.randn((3, HEIGHT, WIDTH), generator=gen, device="cuda")
-    img = torch.randn((SEM_DIM, HEIGHT, WIDTH), generator=gen, device="cuda")
-
-    def counts_of(c):
-        feat, starts, ends, grid_x = capture_inputs(scene, cams[0], c)["blend"]
-        raw = blend_fwd(feat, starts, ends, grid_x)
-        return raw[..., feat.shape[0] - 5:]    # walked, blended
-
-    def fwd_bwd(c):
-        return scene_grads(lambda s: render(s, cams[0], bg, c), scene, tgt,
-                           "sum")
-
-    with torch.no_grad():
-        ref = render(scene, cams[0], bg, cfg)
-    if int(ref["num_slots"]) > cfg.max_instances:
-        raise AssertionError("[aligned] the chunked frame overflowed")
-    ref_counts = counts_of(cfg)
-    ref_grads = fwd_bwd(cfg)
-    ref_trace = trace(scene, cams[0], img, bg, cfg)
-    chunked_ms = median_ms(lambda: fwd_bwd(cfg), iters=3, warmup=1)
-    configs = {r: RasterConfig(max_instances=mi, max_binned=mb,
-                               layout="aligned", reduce=r)
-               for r in ALIGNED_REDUCES}
-    for reduce, acfg in configs.items():
-        if not torch.equal(counts_of(acfg), ref_counts):
-            raise AssertionError(f"[aligned] {reduce}: walked/blended "
-                                 f"counts differ from the chunked layout's")
-    del ref_counts
-
-    reset_counts()
-    times = {}
-    for reduce, acfg in configs.items():
-        with torch.no_grad():
-            out = render(scene, cams[0], bg, acfg)
-        equal, err = frames_agree(out, ref, 3e-6, f"[aligned] {reduce}")
-        if int(out["num_slots"]) > mb or int(out["num_instances"]) > mi:
-            raise AssertionError(f"[aligned] {reduce}: num_slots past "
-                                 f"the budgets")
-        g1, g2 = fwd_bwd(acfg), fwd_bwd(acfg)
-        if not all(torch.equal(g1[k], g2[k]) for k in g1):
-            raise AssertionError(f"[aligned] {reduce}: gradients differ "
-                                 f"between two passes")
-        worst, share = 0.0, 0.0
-        for k in g1:
-            sh, e = share_past_scale(g1[k], ref_grads[k], *TOL_LAYOUTS)
-            if sh > FLIP_SHARE:
-                raise AssertionError(f"[aligned] {reduce} {k}: {sh:.4f} of "
-                                     f"the elements past the bar (budget "
-                                     f"{FLIP_SHARE}), max diff {e}")
-            worst, share = max(worst, e), max(share, sh)
-        times[reduce] = median_ms(lambda: fwd_bwd(acfg), iters=3, warmup=1)
-        log(f"[aligned] {reduce}: frame {'bit-equal to' if equal else 'within'}"
-            f" the chunked one (max diff {err:.3e}), walked/blended counts "
-            f"equal; gradients of the summed loss bit-identical over two "
-            f"passes; against the chunked ones {share:.5f} of the elements "
-            f"past {TOL_LAYOUTS[0]} x max(|g|, q99 |g|) + {TOL_LAYOUTS[1]} "
-            f"(budget {FLIP_SHARE}), max diff {worst:.3e}; fwd + bwd "
-            f"{times[reduce]:.2f} ms")
-    atrace = trace(scene, cams[0], img, bg, configs["scatter"])
-    counts = read_counts()
-    if not torch.equal(atrace["num_gsem"], ref_trace["num_gsem"]):
-        raise AssertionError("[aligned] trace hit counts differ from the "
-                             "chunked layout's")
-    share, err = share_past_scale(atrace["gaussian_semantics"],
-                                  ref_trace["gaussian_semantics"], *TOL_LIFT)
-    if share > FLIP_SHARE or not torch.allclose(
-            atrace["render"], ref_trace["render"], rtol=3e-6, atol=3e-6):
-        raise AssertionError(f"[aligned] trace: {share:.4f} of the lifted "
-                             f"features past {TOL_LIFT}, max diff {err}")
-    log(f"[aligned] budgets max_instances={mi} max_binned={mb} (chunked "
-        f"{cfg.max_instances}); trace hit counts equal to the chunked "
-        f"layout's ({int(atrace['num_gsem'].sum()) // SEM_DIM} hits), lifted "
-        f"features: {share:.5f} past {TOL_LIFT} (scaled), max diff "
-        f"{err:.3e}; fwd + bwd chunked {chunked_ms:.2f} ms "
-        f"vs aligned {times}; phase {time.perf_counter() - t_phase:.1f} s; "
-        f"launches {counts}")
-    for k in ("gather", "blend", "blend_bwd", "prefix", "trace"):
-        if counts[k] <= 0:
-            raise AssertionError(f"[aligned] {k} was not launched: {counts}")
-    return counts
 
 
 def widths_phase():
@@ -4265,10 +4128,6 @@ def main() -> int:
     for k, n in dist1_phase(scene, cams, cfg).items():
         launches[k] = launches.get(k, 0) + n
 
-    # ---- 6b. the legacy aligned layout ----
-    torch.cuda.empty_cache()
-    for k, n in aligned_phase(scene, cams, cfg).items():
-        launches[k] = launches.get(k, 0) + n
     del scene
 
     # ---- 7. the kernels at other widths ----

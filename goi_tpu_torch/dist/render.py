@@ -12,7 +12,7 @@ Counterpart of goi_tpu/dist/render.py (`_exchange_rows`,
      fixed-size packs), so a rank holds ~N/D rows instead of N;
   3. bins and blends only its slice of tile rows [row0, row0 + gy_local)
      with the one-card kernels (raster/render.py `_bin_and_blend`, the
-     layout and reduce of the config) at the budget max_instances // D;
+     reduce of the config) at the budget max_instances // D;
   4. joins the slabs into the frame (collectives.gather_frame_rows).
 
 The splats are resliced to the rank's rows as the JAX package does: the
@@ -155,8 +155,7 @@ def render_sharded(scene: GaussianScene, cam: Camera, bg, config: RasterConfig,
                        gather_parts(_ints(sp), group).reshape(-1, 7))
         demand = torch.zeros((), dtype=torch.int64, device=sp.depth.device)
     local = _reslice(full, mesh.index(axis) * gy_local, gy_local)
-    local_cfg = dataclasses.replace(config, max_instances=local_budget,
-                                    max_binned=None)
+    local_cfg = dataclasses.replace(config, max_instances=local_budget)
     tiles, binning = _bin_and_blend(local, local_cfg,
                                     _effective_reduce(config), bg, grid_x,
                                     gy_local)

@@ -19,13 +19,6 @@ identifyTileRanges, ref:cuda_rasterizer/rasterizer_impl.cu:35-138,
   tie-break, the order of the reference's stable radix sort;
 - on overflow the stream truncates at `max_instances`; `num_slots`
   reports the true demand so callers rebudget.
-
-The legacy aligned layout (`bin_splats(align=K)`) expands only the
-Gaussians that touch a tile (its expansion gather runs over those, so
-the kernel's one-slot-per-Gaussian precondition holds) and re-scatters
-each tile's run to a K-aligned start; the gaps carry the Gaussian id -1
-and lie outside every tile's [start, end). `tile_counts` and
-`exact_tile_counts` size its budgets.
 """
 
 from __future__ import annotations
@@ -73,24 +66,13 @@ class Binning:
     num_instances: torch.Tensor  # () int32 raw rect instance count
     num_slots: torch.Tensor      # () int32 slots demanded; > budget <=>
     #                              instances were truncated
-    # chunked layout: exclusive prefix of per-tile chunk counts (chunks
-    # of K from (start // K) * K): the backward's per-(tile, chunk) rows
-    chunk_base: Optional[torch.Tensor] = None   # (num_tiles,) int32
-    # chunked + export_perm: sort_slots[p] = expansion index of the
-    # instance at sorted position p; g_stream[r] = Gaussian owning
-    # expansion slot r
+    # exclusive prefix of per-tile chunk counts (chunks of K from
+    # (start // K) * K): the backward's per-(tile, chunk) rows
+    chunk_base: torch.Tensor     # (num_tiles,) int32
+    # export_perm: sort_slots[p] = expansion index of the instance at
+    # sorted position p; g_stream[r] = Gaussian owning expansion slot r
     sort_slots: Optional[torch.Tensor] = None   # (max_instances,) int32
     g_stream: Optional[torch.Tensor] = None     # (max_instances,) int32
-    # aligned + export_perm: stream_pos[r] = aligned slot of expansion
-    # slot r (2^30 where dropped); stream_gid[r] = its Gaussian id
-    # (non-decreasing)
-    stream_pos: Optional[torch.Tensor] = None   # (max_instances,) int32
-    stream_gid: Optional[torch.Tensor] = None   # (max_instances,) int32
-
-    @property
-    def aligned(self) -> bool:
-        """K-aligned tile segments with gaps (point_list -1 in them)."""
-        return self.chunk_base is None
 
 
 def _expansion_table(sp: Splats, base: torch.Tensor,
@@ -117,60 +99,6 @@ def _expansion_table(sp: Splats, base: torch.Tensor,
     return torch.stack(cols, dim=0)
 
 
-def tile_counts(sp: Splats, *, grid_x: int, grid_y: int) -> torch.Tensor:
-    """Per-tile counts of the Gaussians whose rect covers the tile, without
-    expanding instances: +1 at each rect's corners of a 2D difference
-    array (counted per corner), then a 2D cumsum; (num_tiles,) int32."""
-    one = sp.valid & (sp.tiles_touched > 0)
-    x0, y0 = sp.rect_min[one, 0].long(), sp.rect_min[one, 1].long()
-    x1, y1 = sp.rect_max[one, 0].long(), sp.rect_max[one, 1].long()
-    size = (grid_y + 1) * (grid_x + 1)
-
-    def corner(y, x):
-        return torch.bincount(y * (grid_x + 1) + x, minlength=size)
-
-    diff = corner(y0, x0) - corner(y0, x1) - corner(y1, x0) + corner(y1, x1)
-    counts = torch.cumsum(torch.cumsum(
-        diff.reshape(grid_y + 1, grid_x + 1), 0), 1)
-    return counts[:grid_y, :grid_x].reshape(-1).to(torch.int32)
-
-
-def _expand_instances(sp: Splats, *, grid_x: int, grid_y: int, n_inst: int,
-                      cull: bool = True):
-    """Expansion of the aligned layout: instances in Gaussian-index order,
-    no slot for a Gaussian that touches no tile. Returns (tile, g_stream,
-    depth_bits, total): the instance's tile (num_tiles where padded or
-    culled), its Gaussian (non-decreasing), the depth sort bits and the
-    raw rect instance count.
-
-    The expansion gather runs over the Gaussians with a slot below
-    n_inst (each has at least one), so its search gives every slot the
-    last of them based at or before it: the JAX package's first-slot
-    marks and cummax, slots past an overflow included."""
-    num_tiles = grid_x * grid_y
-    counts = sp.tiles_touched.long()
-    offsets = torch.cumsum(counts, 0)
-    base = offsets - counts
-    total = offsets[-1]
-    owners = torch.nonzero((counts > 0) & (base < n_inst)).flatten()
-    if owners.numel() == 0:      # nothing to expand: Gaussian 0 owns all
-        owners = torch.zeros(1, dtype=torch.long, device=counts.device)
-    table = _expansion_table(sp, base, counts)[:, owners]
-    g_local, rows = expand_gather(table, base[owners], n_inst)
-    g_stream = owners[g_local.long()].to(torch.int32)
-    slots = torch.arange(n_inst, device=counts.device)
-    tx, ty = _decode_cell(rows[12], rows[13],
-                          slots.to(torch.int32) - rows[3].to(torch.int32),
-                          rows[0].to(torch.int32), rows[1].to(torch.int32),
-                          rows[2].to(torch.int32))
-    keep = slots < total
-    if cull:
-        keep = keep & _overlaps(rows, tx, ty)
-    tile = torch.where(keep, ty * grid_x + tx,
-                       torch.full_like(tx, num_tiles))
-    return tile, g_stream, rows[5].view(torch.int32), total
-
-
 def _overlaps(rows, tx, ty):
     """The exact ellipse/tile overlap test of each instance (rows of the
     expansion table): False where no pixel of tile (tx, ty) can blend it.
@@ -183,18 +111,6 @@ def _overlaps(rows, tx, ty):
     min_q = cell_min_q(lx, lx + (TILE - 1), ly, ly + (TILE - 1), ca, cb, cc)
     pd = (ca > 0.0) & (cc > 0.0) & (ca * cc - cb * cb > 0.0)
     return (min_q <= rows[11]) | ~pd
-
-
-def exact_tile_counts(sp: Splats, *, grid_x: int, grid_y: int,
-                      max_instances: int) -> torch.Tensor:
-    """Per-tile instance counts after the exact overlap cull (what
-    bin_splats bins); max_instances must cover the raw rect demand
-    sum(tiles_touched). (num_tiles,) int64."""
-    tile, _, _, _ = _expand_instances(sp, grid_x=grid_x, grid_y=grid_y,
-                                      n_inst=max_instances)
-    num_tiles = grid_x * grid_y
-    return torch.bincount(tile[tile < num_tiles].long(),
-                          minlength=num_tiles)
 
 
 def _sort_instances(tile, depth_bits, g_stream):
@@ -213,69 +129,11 @@ def _tile_ranges(tile_sorted, num_tiles: int):
             torch.searchsorted(tile_sorted, tids, right=True))
 
 
-def bin_splats(sp: Splats, *, grid_x: int, grid_y: int, max_instances: int,
-               align: int = 0, export_perm: bool = False, cull: bool = True,
-               binned_slots: Optional[int] = None) -> Binning:
-    """The legacy layouts. align > 0 re-scatters each tile's run to a
-    start rounded up to a multiple of `align` (the gaps hold -1);
-    align = 0 leaves one contiguous stream.
-
-    Two sizes (the cull makes them differ): max_instances sizes the
-    expansion and sort (it must cover sum(tiles_touched); num_instances
-    reports that demand); binned_slots (align > 0; default max_instances)
-    sizes the aligned buffer, whose demand num_slots reports (with the
-    raw demand folded in when the sizes are coupled). Overflow truncates
-    the highest tiles' instances. export_perm (align > 0) adds the
-    expansion-order view of the sort for the 'sorted' and 'cumsum'
-    reduces."""
-    num_tiles = grid_x * grid_y
-    n_binned = binned_slots if binned_slots is not None else max_instances
-    tile, g_stream, depth_bits, total = _expand_instances(
-        sp, grid_x=grid_x, grid_y=grid_y, n_inst=max_instances, cull=cull)
-    tile_sorted, perm, gid = _sort_instances(tile, depth_bits, g_stream)
-    starts, ends = _tile_ranges(tile_sorted, num_tiles)
-    i32 = torch.int32
-    if not align:
-        if export_perm:
-            raise ValueError("export_perm needs the aligned layout (align > 0)")
-        return Binning(point_list=gid, tile_start=starts.to(i32),
-                       tile_end=ends.to(i32), num_instances=total.to(i32),
-                       num_slots=total.to(i32))
-    counts_t = ends - starts
-    seg = (counts_t + align - 1) // align * align
-    seg_cum = torch.cumsum(seg, 0)
-    a_start = seg_cum - seg
-    # valid positions strictly increase (rank within a tile, aligned
-    # starts across tiles), so every kept instance has its own slot
-    t = torch.clamp(tile_sorted, max=num_tiles - 1)
-    pos = a_start[t] + torch.arange(tile.shape[0], device=tile.device) \
-        - starts[t]
-    kept = (tile_sorted < num_tiles) & (pos < n_binned)
-    gid_aligned = torch.full((n_binned,), -1, dtype=gid.dtype,
-                             device=gid.device)
-    gid_aligned[pos[kept]] = gid[kept]
-    spos = sgid = None
-    if export_perm:
-        spos = torch.full((max_instances,), 1 << 30, dtype=i32,
-                          device=gid.device)
-        spos[perm[kept]] = pos[kept].to(i32)
-        sgid = g_stream
-    demand = seg_cum[-1]
-    if binned_slots is None:
-        demand = torch.maximum(demand, total)
-    return Binning(
-        point_list=gid_aligned,
-        tile_start=torch.clamp(a_start, max=n_binned).to(i32),
-        tile_end=torch.clamp(a_start + counts_t, max=n_binned).to(i32),
-        num_instances=total.to(i32), num_slots=demand.to(i32),
-        stream_pos=spos, stream_gid=sgid)
-
-
 def _expand_chunked(sp: Splats, *, grid_x: int, grid_y: int, n_inst: int,
                     cull: bool):
-    """Expansion for the chunked layout. Returns (tile, g_stream,
-    depth_bits, raw_total, demand); demand counts the forced sentinel
-    slot of every zero-count Gaussian."""
+    """The expansion. Returns (tile, g_stream, depth_bits, raw_total,
+    demand); demand counts the forced sentinel slot of every zero-count
+    Gaussian."""
     num_tiles = grid_x * grid_y
     dev = sp.depth.device
     counts_true = sp.tiles_touched.long()

@@ -8,10 +8,7 @@ forward blend is the hand-written CUDA kernel csrc/blend_fwd.cu and the
 backward csrc/blend_bwd.cu on a CUDA tensor, their plain PyTorch
 versions (`blend_fwd_plain`, `blend_bwd_plain`) on a CPU tensor. The
 backward's per-instance rows reduce to per-Gaussian gradients in
-raster/reduce.py (`reduce_rows` picks the reduce). In the legacy aligned
-layout the gaps between tile segments hold the Gaussian id -1: they pack
-as zero features (so a walked gap lane never blends) and their backward
-rows, which no tile writes, are zeroed before the reduce.
+raster/reduce.py (`reduce_rows` picks the reduce).
 
 Feature rows of the packed matrix (D = 10 + S):
   0:x 1:y 2:conic_a 3:conic_b 4:conic_c 5:opacity 6..8:rgb
@@ -50,13 +47,11 @@ from goi_tpu_torch.raster import _nvcc
 from goi_tpu_torch.raster.binning import Binning
 from goi_tpu_torch.raster.blend import _tile_pixel_coords, chunk_weights
 from goi_tpu_torch.raster.preprocess import TILE, Splats
-from goi_tpu_torch.raster.reduce import (reduce_chain, reduce_cumsum,
-                                         reduce_scatter,
-                                         reduce_scatter_serial, reduce_sorted)
+from goi_tpu_torch.raster.reduce import reduce_chain, reduce_scatter
 from goi_tpu_torch.raster.reference import ALPHA_CLAMP, T_EPS
 from goi_tpu_torch.utils.profiling import armed, count, span
 
-K = 256            # instances per chunk: the chunked layout's walk unit
+K = 256            # instances per chunk: the walk unit
 PIX = TILE * TILE
 SEM_DIMS = (0, 3, 8, 10, 16, 32, 64)   # template instances in
                                        # csrc/blend_*.cu and trace.cu
@@ -77,24 +72,12 @@ _BWD_SIGNATURES = {"goi_blend_bwd": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]}
 
 
-def _pack_impl(mean2d, conic, opacity, color, semantics, depth, gid):
+def pack(mean2d, conic, opacity, color, semantics, depth, gid):
     """Per-instance features, feature-major (10 + S, M): one gather of a
     per-Gaussian feature matrix by the tile-sorted Gaussian ids."""
     per_gauss = torch.cat([mean2d.T, conic.T, opacity[None], color.T,
                            semantics.T, depth[None]], dim=0)
     return per_gauss[:, gid.long()].contiguous()
-
-
-def pack(mean2d, conic, opacity, color, semantics, depth, gid,
-         aligned: bool):
-    """`_pack_impl`, with the gap slots of an aligned binning (gid < 0)
-    packed as zeros: zero opacity, never blended."""
-    if not aligned:
-        return _pack_impl(mean2d, conic, opacity, color, semantics, depth,
-                          gid)
-    feat = _pack_impl(mean2d, conic, opacity, color, semantics, depth,
-                      torch.clamp(gid, min=0))
-    return torch.where(gid >= 0, feat, torch.zeros_like(feat))
 
 
 def lane_features(feat, idx, m):
@@ -455,26 +438,15 @@ def _chain_bounds(tiles_touched: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def reduce_rows(rows: torch.Tensor, reduce: str, gid: torch.Tensor,
-                n_gauss: int, perm=None, keys=None, dense: bool = False,
-                aligned: bool = False) -> torch.Tensor:
+                n_gauss: int, perm=None, keys=None,
+                dense: bool = False) -> torch.Tensor:
     """Per-instance rows (M, d) by sorted position -> per-Gaussian sums
     (n_gauss, d) by `reduce`: 'chain' (perm = the binning's sort_slots,
     keys = tiles_touched; `dense` fuses its prefix and read-out) or
-    'scatter' (by gid); aligned, 'scatter' (by gid, serial sums),
-    'sorted' (perm = stream_pos, keys = stream_gid) or 'cumsum' (perm =
-    stream_pos, keys = tiles_touched). Aligned rows of the gaps (gid < 0),
-    which no tile writes, are zeroed first."""
-    if aligned:
-        rows = torch.where((gid >= 0)[:, None], rows, torch.zeros_like(rows))
+    'scatter' (by gid)."""
     if reduce == "chain":
         return reduce_chain(rows, perm, _chain_bounds(keys, rows.shape[0]),
                             dense=dense)
-    if reduce == "sorted":
-        return reduce_sorted(rows, perm, keys, n_gauss)
-    if reduce == "cumsum":
-        return reduce_cumsum(rows, perm, keys)
-    if aligned:
-        return reduce_scatter_serial(rows, gid, n_gauss)
     return reduce_scatter(rows, gid, n_gauss)
 
 
@@ -486,12 +458,10 @@ class _BlendCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, color, semantics, depth, gid,
-                starts, ends, grid_x, reduce, dense, aligned, perm, keys):
-        feat = pack(mean2d, conic, opacity, color, semantics, depth, gid,
-                    aligned)
+                starts, ends, grid_x, reduce, dense, perm, keys):
+        feat = pack(mean2d, conic, opacity, color, semantics, depth, gid)
         raw = blend_fwd(feat, starts, ends, grid_x)
         ctx.grid_x, ctx.reduce, ctx.dense = grid_x, reduce, dense
-        ctx.aligned = aligned
         ctx.n_gauss, ctx.s_dim = mean2d.shape[0], semantics.shape[-1]
         ctx.save_for_backward(feat, starts, ends, raw, gid, perm, keys)
         return raw
@@ -502,33 +472,24 @@ class _BlendCore(torch.autograd.Function):
         rows = blend_bwd(feat, starts, ends, raw, grad_raw, ctx.grid_x)
         with span("blend.reduce"):
             acc = reduce_rows(rows, ctx.reduce, gid, ctx.n_gauss, perm,
-                              keys, ctx.dense, ctx.aligned)
+                              keys, ctx.dense)
         s = ctx.s_dim
         return (acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:9],
                 acc[:, 9:9 + s], acc[:, 9 + s],
-                None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def reduce_inputs(sp: Splats, binning: Binning, reduce: str):
     """(perm, keys) of `reduce_rows` for `reduce` on this binning;
     raises where the binning lacks what the reduce needs."""
-    aligned = binning.aligned
-    if reduce not in (("scatter", "sorted", "cumsum") if aligned
-                      else ("scatter", "chain")):
-        raise ValueError(f"reduce {reduce!r} does not run on the "
-                         f"{'aligned' if aligned else 'chunked'} layout "
-                         f"(resolve 'auto' before calling)")
+    if reduce not in ("scatter", "chain"):
+        raise ValueError(f"unknown reduce {reduce!r} (resolve 'auto' "
+                         f"before calling)")
     if reduce == "chain":
         if binning.sort_slots is None:
             raise ValueError("reduce='chain' needs bin_splats_chunked("
                              "..., export_perm=True)")
         return binning.sort_slots, sp.tiles_touched
-    if reduce in ("sorted", "cumsum"):
-        if binning.stream_pos is None:
-            raise ValueError(f"reduce={reduce!r} needs bin_splats(..., "
-                             f"align=K, export_perm=True)")
-        return binning.stream_pos, (binning.stream_gid if reduce == "sorted"
-                                    else sp.tiles_touched)
     return None, None
 
 
@@ -536,13 +497,11 @@ def blend_tiles_cuda(sp: Splats, binning: Binning, bg: torch.Tensor, *,
                      grid_x: int, reduce: str, dense: bool = False):
     """Per-tile images: color (T,256,3), semantics (T,256,S),
     depth (T,256), alpha (T,256). `reduce` (already resolved) picks the
-    backward's instance -> Gaussian reduction: 'scatter' | 'chain' on a
-    chunked binning ('chain' needs export_perm=True; `dense`, chain only,
-    fuses its prefix and boundary read-out), 'scatter' | 'sorted' |
-    'cumsum' on an aligned one ('sorted' and 'cumsum' need
-    export_perm=True). While armed, counts the forward's walked and
-    blended pairs (blend.walked, blend.blended: raw's per-pixel counts
-    summed in float64)."""
+    backward's instance -> Gaussian reduction: 'scatter' | 'chain'
+    ('chain' needs export_perm=True; `dense`, chain only, fuses its
+    prefix and boundary read-out). While armed, counts the forward's
+    walked and blended pairs (blend.walked, blend.blended: raw's
+    per-pixel counts summed in float64)."""
     perm, keys = reduce_inputs(sp, binning, reduce)
     if dense and reduce != "chain":
         raise ValueError("dense needs reduce='chain'")
@@ -550,7 +509,7 @@ def blend_tiles_cuda(sp: Splats, binning: Binning, bg: torch.Tensor, *,
     raw = _BlendCore.apply(sp.mean2d, sp.conic, sp.opacity, sp.color,
                            sp.semantics, sp.depth, binning.point_list,
                            binning.tile_start, binning.tile_end, grid_x,
-                           reduce, dense, binning.aligned, perm, keys)
+                           reduce, dense, perm, keys)
     if armed():
         pairs = raw.detach()[..., 5 + s:7 + s].sum((0, 1),
                                                    dtype=torch.float64)

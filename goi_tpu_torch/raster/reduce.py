@@ -28,19 +28,6 @@ position, and rows past the kept instances are zero, so the reduces pass
 no mask to the prefix (the kernel still takes one, as the TPU kernel
 did).
 
-The legacy aligned layout (`RasterConfig(layout="aligned")`, the
-counterparts of `_reduce_instance_grads`, `_reduce_instance_grads_sorted`
-and `_reduce_instance_grads_cumsum`) sums as the JAX package does there:
-'scatter' and 'sorted' by serial segment sums (`segment_sums`:
-`torch.segment_reduce`, one loop per segment and column, no atomics),
-'scatter' of the rows sorted by Gaussian id (the gaps' id -1 first, out
-of every segment), 'sorted' of the rows put in expansion order by the
-binning's `stream_pos` (zero where it marks a dropped instance), where
-`stream_gid` is non-decreasing; both add a Gaussian's rows in the same
-(tile) order, so they give the same bits. 'cumsum' takes the expansion
-order to blocked_segment_reduce over the clamped cumsum(tiles_touched)
-bounds.
-
 `dense_boundary_reduce` (`RasterConfig.dense_reduce`, the counterpart of
 `_dense_boundary_reduce`) gives blocked_segment_reduce's bits with the
 prefix and its read-out at the bounds fused into csrc/prefix_boundary.cu
@@ -358,62 +345,14 @@ def reduce_chain(rows: torch.Tensor, sort_slots: torch.Tensor,
     return blocked_segment_reduce(stream, bounds)
 
 
-def _rows_by_gid(rows: torch.Tensor, gid: torch.Tensor, n_gauss: int):
-    """rows in a stable order of their Gaussian ids, and the (n_gauss + 1,)
-    bounds of each id's run (ids below 0 fall before bounds[0])."""
+def reduce_scatter(rows: torch.Tensor, gid: torch.Tensor,
+                   n_gauss: int) -> torch.Tensor:
+    """rows (m, d) by sorted position, gid (m,) their Gaussian ids ->
+    (n_gauss, d) sums by id (zero rows may carry any id): the rows in a
+    stable order of their ids, each id's run bounded by a binary search."""
     order = torch.argsort(gid, stable=True)
     keys = gid[order].contiguous()
     bounds = torch.searchsorted(
         keys, torch.arange(n_gauss + 1, dtype=keys.dtype,
                            device=keys.device))
-    return rows[order], bounds
-
-
-def reduce_scatter(rows: torch.Tensor, gid: torch.Tensor,
-                   n_gauss: int) -> torch.Tensor:
-    """rows (m, d) by sorted position, gid (m,) their Gaussian ids ->
-    (n_gauss, d) sums by id (zero rows may carry any id)."""
-    return blocked_segment_reduce(*_rows_by_gid(rows, gid, n_gauss))
-
-
-def segment_sums(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
-    """(n, d) serial sums of rows over [bounds[g], bounds[g + 1]), in row
-    order (torch.segment_reduce: a loop per segment and column)."""
-    b = bounds.long()
-    return torch.segment_reduce(rows[b[0]:b[-1]], "sum", lengths=b.diff())
-
-
-def reduce_scatter_serial(rows: torch.Tensor, gid: torch.Tensor,
-                          n_gauss: int) -> torch.Tensor:
-    """The aligned 'scatter' reduce: reduce_scatter's runs summed serially
-    (the rows of ids below 0 belong to no run)."""
-    return segment_sums(*_rows_by_gid(rows, gid, n_gauss))
-
-
-def expansion_order(rows: torch.Tensor,
-                    stream_pos: torch.Tensor) -> torch.Tensor:
-    """rows (m, d) by aligned slot -> (len(stream_pos), d) in expansion
-    order, zero where stream_pos is past the rows (a dropped instance)."""
-    m = rows.shape[0]
-    out = rows[torch.clamp(stream_pos.long(), max=m - 1)]
-    return torch.where((stream_pos < m)[:, None], out, torch.zeros_like(out))
-
-
-def reduce_sorted(rows: torch.Tensor, stream_pos: torch.Tensor,
-                  stream_gid: torch.Tensor, n_gauss: int) -> torch.Tensor:
-    """The aligned 'sorted' reduce: rows in expansion order, where the
-    Gaussian ids stream_gid are non-decreasing, summed serially per run."""
-    bounds = torch.searchsorted(
-        stream_gid, torch.arange(n_gauss + 1, dtype=stream_gid.dtype,
-                                 device=stream_gid.device))
-    return segment_sums(expansion_order(rows, stream_pos), bounds)
-
-
-def reduce_cumsum(rows: torch.Tensor, stream_pos: torch.Tensor,
-                  tiles_touched: torch.Tensor) -> torch.Tensor:
-    """The aligned 'cumsum' reduce: rows in expansion order summed over
-    the expansion's bounds cumsum(tiles_touched) (clamped to the stream,
-    so a truncated tail falls out of every segment)."""
-    ends = torch.cumsum(tiles_touched.long(), 0)
-    bounds = torch.cat([ends.new_zeros(1), ends])
-    return blocked_segment_reduce(expansion_order(rows, stream_pos), bounds)
+    return blocked_segment_reduce(rows[order], bounds)

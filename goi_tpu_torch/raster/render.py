@@ -12,10 +12,7 @@ no_grad, and the blend's own backward (raster/cuda_blend.py) with the
 reduce that `_effective_reduce` picks. `trace` lifts a 2D feature map
 onto the Gaussians through the fused blend + lift kernel
 (raster/cuda_trace.py), forward only. `render_batch` renders a list of
-views, or a stacked camera, on one budget. The legacy aligned layout
-(`layout="aligned"`: K-aligned tile segments, its own budget
-`max_binned` and the 'scatter' / 'sorted' / 'cumsum' reduces) feeds the
-same kernels.
+views, or a stacked camera, on one budget.
 """
 
 from __future__ import annotations
@@ -28,8 +25,7 @@ import torch
 
 from goi_tpu_torch.core.camera import Camera, unstack_cameras
 from goi_tpu_torch.core.scene import GaussianScene
-from goi_tpu_torch.raster.binning import (bin_splats, bin_splats_chunked,
-                                          exact_tile_counts)
+from goi_tpu_torch.raster.binning import bin_splats_chunked
 from goi_tpu_torch.raster.blend import tiles_to_image
 from goi_tpu_torch.raster.cuda_blend import K as BLEND_K
 from goi_tpu_torch.raster.cuda_blend import (blend_tiles_cuda, composite,
@@ -51,17 +47,9 @@ class RasterConfig:
     backend: 'cuda' (the kernels on CUDA tensors, their plain versions
         on CPU tensors) or 'reference' (the per-pixel oracle).
     reduce: instance->Gaussian gradient reduction of the backward,
-        resolved by _effective_reduce: 'auto' | 'scatter' | 'chain' in
-        the chunked layout ('chain' also makes the binning export its
-        sort permutation), 'auto' | 'scatter' | 'sorted' | 'cumsum' in
-        the aligned one ('sorted' and 'cumsum' export the expansion-order
-        view of the sort).
+        resolved by _effective_reduce: 'auto' | 'scatter' | 'chain'
+        ('chain' also makes the binning export its sort permutation).
     cull: exact ellipse/tile overlap cull in binning (output-exact).
-    layout: 'chunked' (one contiguous tile-sorted stream) or 'aligned'
-        (the legacy layout: each tile's segment starts at a multiple of
-        the blend's K, sentinel-filled gaps between them).
-    max_binned: aligned layout only: the size of the aligned buffer
-        (None couples it to max_instances); suggest_budgets sizes it.
     dense_reduce: fuse the 'chain' reduce's block prefix and its read-out
         at the segment bounds into one kernel (csrc/prefix_boundary.cu;
         the same bits, less memory traffic). Off by default, as the JAX
@@ -79,10 +67,8 @@ class RasterConfig:
     backend: str = "cuda"
     reduce: str = "auto"
     cull: bool = True
-    layout: str = "chunked"
     dense_reduce: bool = False
     debug: bool = False
-    max_binned: Optional[int] = None
 
 
 def _grid(cam: Camera):
@@ -95,18 +81,12 @@ AUTO_CUMSUM_MIN = 1 << 19
 
 
 def _effective_reduce(config: RasterConfig) -> str:
-    """Resolve reduce='auto' against the static budgets, as the JAX
-    package does: in the chunked layout 'chain' from AUTO_CUMSUM_MIN
-    slots; in the aligned one 'cumsum' when the aligned buffer reaches it
-    and the expansion is under 5x that buffer, else 'scatter'.
-    dense_reduce needs the resolution to be 'chain'."""
+    """Resolve reduce='auto' against the static budget, as the JAX
+    package does in its chunked layout: 'chain' from AUTO_CUMSUM_MIN
+    slots, else 'scatter'. dense_reduce needs the resolution to be
+    'chain'."""
     if config.reduce != "auto":
         reduce = config.reduce
-    elif config.layout == "aligned":
-        n_binned = (config.max_binned if config.max_binned is not None
-                    else config.max_instances)
-        reduce = ("cumsum" if n_binned >= AUTO_CUMSUM_MIN
-                  and config.max_instances < 5 * n_binned else "scatter")
     else:
         reduce = ("chain" if config.max_instances >= AUTO_CUMSUM_MIN
                   else "scatter")
@@ -139,50 +119,31 @@ BUDGET_QUANTUM = 4096  # multiple of the blend's K
 
 
 def suggest_budgets(scene: GaussianScene, cams, *, margin: float = 1.5,
-                    minimum: int = 1 << 15, align: int = 0,
-                    layout: str = "chunked") -> tuple:
-    """(max_instances, max_binned) covering the frames of `cams`, each
-    with `margin` headroom, rounded up to BUDGET_QUANTUM. Chunked: the
-    expansion demand sum(max(tiles_touched, 1)) (one forced slot per
-    Gaussian), and no separate aligned buffer, so both entries are
-    equal. Aligned: the raw demand sum(tiles_touched), and with align > 0
-    the aligned buffer's demand after the overlap cull
-    (exact_tile_counts, each tile rounded up to a multiple of align)."""
+                    minimum: int = 1 << 15) -> tuple:
+    """(max_instances, max_instances): the expansion demand
+    sum(max(tiles_touched, 1)) (one forced slot per Gaussian) of the
+    worst frame of `cams`, with `margin` headroom, rounded up to
+    BUDGET_QUANTUM. The budget comes twice, as the JAX package's budget
+    pair does in its chunked layout, because callers unpack two values;
+    suggest_instance_budget returns it once."""
     if not isinstance(cams, (list, tuple)):
         cams = [cams]
-    q = BUDGET_QUANTUM
-    worst_raw = worst_aligned = 0
+    worst = 0
     with torch.no_grad():
         for cam in cams:
-            sp = preprocess(scene, cam)
-            counts = sp.tiles_touched
-            if layout == "chunked":
-                counts = torch.clamp(counts, min=1)
-            raw = int(counts.sum())
-            worst_raw = max(worst_raw, raw)
-            if align and layout != "chunked":
-                gx, gy = _grid(cam)
-                per_tile = exact_tile_counts(
-                    sp, grid_x=gx, grid_y=gy,
-                    max_instances=max((raw + q - 1) // q * q, q))
-                worst_aligned = max(worst_aligned, int(
-                    ((per_tile + align - 1) // align * align).sum()))
-
-    def fit(worst):
-        want = max(int(worst * margin) + 1, minimum)
-        return (want + q - 1) // q * q
-
-    mi = fit(worst_raw)
-    return mi, (fit(worst_aligned) if align and layout != "chunked"
-                else mi)
+            counts = torch.clamp(preprocess(scene, cam).tiles_touched, min=1)
+            worst = max(worst, int(counts.sum()))
+    q = BUDGET_QUANTUM
+    want = max(int(worst * margin) + 1, minimum)
+    mi = (want + q - 1) // q * q
+    return mi, mi
 
 
 def suggest_instance_budget(scene: GaussianScene, cams, *,
-                            margin: float = 1.5, minimum: int = 1 << 15,
-                            align: int = 0, layout: str = "chunked") -> int:
-    """One budget covering both buffers of suggest_budgets."""
-    return max(suggest_budgets(scene, cams, margin=margin, minimum=minimum,
-                               align=align, layout=layout))
+                            margin: float = 1.5,
+                            minimum: int = 1 << 15) -> int:
+    """The one budget of suggest_budgets."""
+    return suggest_budgets(scene, cams, margin=margin, minimum=minimum)[0]
 
 
 def image_to_tiles(img: torch.Tensor, grid_x: int,
@@ -258,37 +219,22 @@ def render_batch(scene: GaussianScene, cams, bg_color,
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
-_REDUCES = {"chunked": ("auto", "scatter", "chain"),
-            "aligned": ("auto", "scatter", "sorted", "cumsum")}
-
-
 def _check_config(config: RasterConfig) -> None:
     if config.backend not in ("cuda", "reference"):
         raise ValueError(f"unknown backend {config.backend!r}")
-    if config.layout not in _REDUCES:
-        raise ValueError(f"unknown layout {config.layout!r}")
-    if config.reduce not in _REDUCES[config.layout]:
-        raise ValueError(f"unknown reduce {config.reduce!r} for layout "
-                         f"{config.layout!r}")
+    if config.reduce not in ("auto", "scatter", "chain"):
+        raise ValueError(f"unknown reduce {config.reduce!r}")
 
 
 def _bin(sp, config: RasterConfig, grid_x: int, grid_y: int, reduce: str):
-    """The binning of `config`'s layout; while armed, counts the sort's
+    """The chunked binning of `config`; while armed, counts the sort's
     length (binning.sorted_slots) and the instances the blend walks
-    (binning.kept: the tiles' ranges, the last tile's end in the chunked
-    layout)."""
+    (binning.kept: the tiles' ranges, the last tile's end)."""
     with span("render.binning"):
-        if config.layout == "aligned":
-            binning = bin_splats(
-                sp, grid_x=grid_x, grid_y=grid_y,
-                max_instances=config.max_instances, align=BLEND_K,
-                export_perm=reduce in ("sorted", "cumsum"),
-                cull=config.cull, binned_slots=config.max_binned)
-        else:
-            binning = bin_splats_chunked(
-                sp, grid_x=grid_x, grid_y=grid_y,
-                max_instances=config.max_instances, chunk_k=BLEND_K,
-                cull=config.cull, export_perm=(reduce == "chain"))
+        binning = bin_splats_chunked(
+            sp, grid_x=grid_x, grid_y=grid_y,
+            max_instances=config.max_instances, chunk_k=BLEND_K,
+            cull=config.cull, export_perm=(reduce == "chain"))
         if armed():
             count("binning.sorted_slots", config.max_instances)
             count("binning.kept",
@@ -325,8 +271,7 @@ def trace(scene: GaussianScene, cam: Camera, img_sem: torch.Tensor,
     preprocess and one binning serve the lift and the embedded render;
     the rows sum per Gaussian with the reduce that `_effective_reduce`
     picks (deterministic; hit counts travel as float32, exact below
-    2^24); the aligned layout sums them by 'scatter', as the JAX package
-    does. backend='reference' runs the kernel's plain version on any
+    2^24). backend='reference' runs the kernel's plain version on any
     device. Forward only: runs under no_grad."""
     _check_config(config)
     s = img_sem.shape[0]
@@ -347,17 +292,13 @@ def trace(scene: GaussianScene, cam: Camera, img_sem: torch.Tensor,
                          torch.ones((1, cam.height, cam.width),
                                     device=dev)])
         feat = pack(sp.mean2d, sp.conic, sp.opacity, sp.color,
-                    sp.semantics, sp.depth, binning.point_list,
-                    binning.aligned)
+                    sp.semantics, sp.depth, binning.point_list)
         raw, rows = fwd(feat, binning.tile_start, binning.tile_end,
                         image_to_tiles(aug, grid_x, grid_y), grid_x)
-        if binning.aligned:
-            reduce = "scatter"
         lifted = reduce_rows(rows, reduce, binning.point_list,
                              sp.mean2d.shape[0],
                              *reduce_inputs(sp, binning, reduce),
-                             dense=config.dense_reduce,
-                             aligned=binning.aligned)
+                             dense=config.dense_reduce)
         bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
         tiles = composite(raw, bg, sp.semantics.shape[-1])
         out = _assemble_out(tiles, sp, binning, cam, grid_x, grid_y)

@@ -52,6 +52,7 @@ def _assert_equal(jb, tb, fields=FIELDS):
 @pytest.mark.parametrize("seed,n,wh,kw,cull", [
     (0, 300, (64, 48), {}, True),
     (1, 300, (96, 64), dict(anisotropic=True), True),
+    (1, 300, (96, 64), dict(anisotropic=True), False),
     (2, 200, (64, 48), dict(spread=0.6), False),
 ])
 def test_binning_matches_jax(seed, n, wh, kw, cull):

@@ -105,8 +105,8 @@ def _packed(seed, n, w, h, sem_dim, max_instances=1 << 15, spread=1.0):
     b = bin_splats_chunked(sp, grid_x=gx, grid_y=gy,
                            max_instances=max_instances,
                            chunk_k=cuda_blend.K)
-    feat = cuda_blend._pack_impl(sp.mean2d, sp.conic, sp.opacity, sp.color,
-                                 sp.semantics, sp.depth, b.point_list)
+    feat = cuda_blend.pack(sp.mean2d, sp.conic, sp.opacity, sp.color,
+                           sp.semantics, sp.depth, b.point_list)
     return feat, b, gx
 
 

@@ -23,7 +23,7 @@ from goi_tpu_torch.raster.blend import (BLOCK_H, BLOCK_W, _tile_pixel_coords,
                                         block_cull_plain, chunk_weights,
                                         pair_alpha, tile_block_origins,
                                         tile_pixel_blocks)
-from goi_tpu_torch.raster.cuda_blend import K, _pack_impl
+from goi_tpu_torch.raster.cuda_blend import K, pack
 from goi_tpu_torch.raster.preprocess import TILE, preprocess
 from goi_tpu_torch.raster.reference import T_EPS
 
@@ -52,8 +52,8 @@ def _scene_pairs(seed, n, wh, aniso):
     sp = preprocess(ts, tc)
     b = bin_splats_chunked(sp, grid_x=gx, grid_y=gy, max_instances=1 << 14,
                            chunk_k=K)
-    feat = _pack_impl(sp.mean2d, sp.conic, sp.opacity, sp.color,
-                      sp.semantics, sp.depth, b.point_list)
+    feat = pack(sp.mean2d, sp.conic, sp.opacity, sp.color,
+                sp.semantics, sp.depth, b.point_list)
     xs, ys = _tile_pixel_coords(gx, gy)
     bx0, by0 = tile_block_origins(gx, gy)
     st, en = b.tile_start.long(), b.tile_end.long()

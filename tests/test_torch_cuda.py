@@ -87,8 +87,8 @@ def _packed(sem_dim, device):
     sp = preprocess(scene, _cam(device))
     b = bin_splats_chunked(sp, grid_x=10, grid_y=8, max_instances=1 << 16,
                            chunk_k=cuda_blend.K)
-    feat = cuda_blend._pack_impl(sp.mean2d, sp.conic, sp.opacity, sp.color,
-                                 sp.semantics, sp.depth, b.point_list)
+    feat = cuda_blend.pack(sp.mean2d, sp.conic, sp.opacity, sp.color,
+                           sp.semantics, sp.depth, b.point_list)
     return feat, b
 
 

@@ -80,18 +80,13 @@ TOWER_SLICE_MODULES = (
 EDIT_SLICE_MODULES = (
     "guidance/__init__.py", "guidance/sd_torch.py", "guidance/sds.py",
     "guidance/samplers.py", "app/edit.py")
-# modules of the distribution slice, and the aligned layout's functions in
-# the raster modules
+# modules of the distribution slice, and the functions that slice added
+# to modules of earlier slices
 DIST_SLICE_MODULES = (
     "dist/__init__.py", "dist/mesh.py", "dist/multihost.py",
     "dist/collectives.py", "dist/render.py", "dist/shard.py", "scale.py",
     "eval_sweep.py", "examples/main_path_hash.py")
-ALIGNED_FUNCTIONS = {
-    "raster/binning.py": ("tile_counts", "_expand_instances",
-                          "exact_tile_counts", "bin_splats"),
-    "raster/reduce.py": ("expansion_order", "segment_sums",
-                         "reduce_scatter_serial", "reduce_sorted",
-                         "reduce_cumsum"),
+DIST_SLICE_FUNCTIONS = {
     "raster/cuda_blend.py": ("pack", "reduce_rows", "reduce_inputs"),
     "raster/render.py": ("_bin_and_blend", "suggest_budgets"),
     "core/camera.py": ("stack_cameras", "unstack_cameras"),
@@ -119,8 +114,8 @@ def test_slice_modules_are_guarded_and_read_no_goi_tpu_file():
     assert {port / m for m in SLICE_MODULES + RGB_SLICE_MODULES
             + APP_SLICE_MODULES + EXPORT_SLICE_MODULES
             + TOWER_SLICE_MODULES + EDIT_SLICE_MODULES
-            + DIST_SLICE_MODULES + tuple(ALIGNED_FUNCTIONS)} <= set(FILES)
-    for m, names in ALIGNED_FUNCTIONS.items():
+            + DIST_SLICE_MODULES + tuple(DIST_SLICE_FUNCTIONS)} <= set(FILES)
+    for m, names in DIST_SLICE_FUNCTIONS.items():
         tree = ast.parse((port / m).read_text())
         defined = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
         assert set(names) <= defined, (m, set(names) - defined)

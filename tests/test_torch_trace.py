@@ -13,7 +13,7 @@ from goi_tpu.raster import RasterConfig as JConfig
 from goi_tpu.raster import trace as jtrace
 from goi_tpu_torch.raster import RasterConfig, render, trace
 from goi_tpu_torch.raster.binning import bin_splats_chunked
-from goi_tpu_torch.raster.cuda_blend import K, _pack_impl, blend_fwd_plain
+from goi_tpu_torch.raster.cuda_blend import K, blend_fwd_plain, pack
 from goi_tpu_torch.raster.cuda_trace import trace_fwd, trace_fwd_plain
 from goi_tpu_torch.raster.preprocess import preprocess
 from goi_tpu_torch.raster.render import image_to_tiles
@@ -147,8 +147,8 @@ def test_trace_fwd_plain_raw_output_and_rows():
     b = bin_splats_chunked(sp, grid_x=2, grid_y=2, max_instances=1 << 14,
                            chunk_k=K)
     assert int((b.tile_end - b.tile_start).max()) > K
-    feat = _pack_impl(sp.mean2d, sp.conic, sp.opacity, sp.color,
-                      sp.semantics, sp.depth, b.point_list)
+    feat = pack(sp.mean2d, sp.conic, sp.opacity, sp.color,
+                sp.semantics, sp.depth, b.point_list)
     img = torch.as_tensor(_img(4, 32, 32, seed=5))
     aug = image_to_tiles(torch.cat([img, torch.ones(1, 32, 32)]), 2, 2)
     raw, rows = trace_fwd_plain(feat, b.tile_start, b.tile_end, aug, 2)

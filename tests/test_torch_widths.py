@@ -120,8 +120,8 @@ def _packed(sem_dim, n=400, w=48, h=32, seed=7):
     gx, gy = (w + 15) // 16, (h + 15) // 16
     b = bin_splats_chunked(sp, grid_x=gx, grid_y=gy, max_instances=1 << 14,
                            chunk_k=CB.K)
-    feat = CB._pack_impl(sp.mean2d, sp.conic, sp.opacity, sp.color,
-                         sp.semantics, sp.depth, b.point_list)
+    feat = CB.pack(sp.mean2d, sp.conic, sp.opacity, sp.color,
+                   sp.semantics, sp.depth, b.point_list)
     return feat, b.tile_start, b.tile_end, gx
 
 

@@ -126,18 +126,17 @@ def main(inp_path, out_dir):
              res["exchange_rows_per_device"]])
         frame(out, f"memory{d}", res)
 
-    # a starved budget: overflow reported, then regrown, in both layouts
-    for layout, small in (("chunked", 1024), ("aligned", 1024)):
-        cfg = RasterConfig(max_instances=small, layout=layout)
-        res = render_sharded(sh_a, cam_a, bg, cfg, mesh)
+    # a starved budget: overflow reported, then regrown, at two budgets
+    for small in (1024, 512):
+        res = render_sharded(sh_a, cam_a, bg,
+                             RasterConfig(max_instances=small), mesh)
         demand = int(res["num_slots"])
-        grown = RasterConfig(max_instances=4 * (-(-demand // 256) * 256),
-                             layout=layout)
+        grown = RasterConfig(max_instances=4 * (-(-demand // 256) * 256))
         res2 = render_sharded(sh_a, cam_a, bg, grown, mesh)
-        out[f"overflow_{layout}.slots"] = np.array(
+        out[f"overflow_{small}.slots"] = np.array(
             [demand, res["local_budget"], int(res2["num_slots"]),
              res2["local_budget"]])
-        frame(out, f"overflow_{layout}", res2)
+        frame(out, f"overflow_{small}", res2)
 
     # the frame gradient of a replicated loss: this rank's slab of it,
     # with no collective in the backward
